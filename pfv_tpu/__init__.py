@@ -1,9 +1,10 @@
-"""pfv_tpu — a TPU-native rebuild of the PFV (Pretty Fast Video) codec.
+"""pfv_tpu — an accelerator rebuild of the PFV (Pretty Fast Video) codec.
 
 Public API mirrors the reference crate (pfv_rs v0.2.2, codec v2.1.1):
 `Encoder` (enc.rs), `Decoder` (dec.rs), `VideoFrame` (frame.rs). The dense
-block math runs as batched JAX/Pallas programs on TPU; the serial entropy
-layer runs in a native C++ extension.
+block math runs as batched JAX/Pallas programs on the device (a GPU step
+kernel on the decode hot path); the serial entropy layer runs in a native
+C++ extension.
 """
 
 from pfv_tpu.dec import (

@@ -211,7 +211,7 @@ def cmd_bench(args) -> None:
 
 
 def cmd_verify(args) -> None:
-    """Cross-check the TPU pipeline against the native scalar decoder."""
+    """Cross-check the device pipeline against the native scalar decoder."""
     from pfv_tpu import runtime
     from pfv_tpu.dataloader import decode_video_checksums, plane_checksums
 

@@ -1,48 +1,38 @@
-"""Runtime configuration knobs.
-
-PFV_PALLAS: "1" force Pallas DCT kernels, "0"/"auto" (default) pure XLA.
-An A/B on the TPU bench corpus (BENCH_r02 extras.device_ab_ms) measured the
-two bit-identical paths within noise of each other — the iDCT is a small
-slice of the decode step after the r2 motion-compensation rework — so the
-default is the simpler XLA path; the kernels stay available and tested.
-"""
+"""Runtime configuration: the persistent compilation cache."""
 
 from __future__ import annotations
 
 import os
 
+# the checkout this package runs from (its .jax_cache is gitignored)
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 _cache_enabled = False
 
 
-def enable_compile_cache(path: str | None = None) -> None:
+def compile_cache_dir(environ=os.environ) -> str | None:
+    """Where the persistent compilation cache lives: None when
+    JAX_COMPILATION_CACHE_DIR is set (JAX then reads it itself and this
+    package sets nothing), else <checkout>/.jax_cache."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return os.path.join(_CHECKOUT, ".jax_cache")
+
+
+def enable_compile_cache() -> None:
     """Enable JAX's persistent compilation cache (idempotent).
 
-    PFV pipelines compile one program per video geometry; caching makes CLI
-    and fresh-process use bearable (especially on remote-compile backends).
-    Set PFV_COMPILE_CACHE=0 to disable.
-    """
+    PFV pipelines compile one program per video geometry; the cache makes
+    CLI and fresh-process use cheaper. CPU compiles are not cached (their
+    entries are pinned to the host's machine features)."""
     global _cache_enabled
-    if _cache_enabled or os.environ.get("PFV_COMPILE_CACHE", "1") == "0":
+    if _cache_enabled:
         return
     import jax
 
-    if jax.default_backend() == "cpu":
-        # CPU AOT cache entries are machine-feature-pinned and replay with
-        # SIGILL-risk warnings on other hosts; CPU compiles are fast anyway
+    path = compile_cache_dir()
+    if path is None or jax.default_backend() == "cpu":
         return
-
-    path = path or os.environ.get(
-        "PFV_COMPILE_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "pfv_tpu", "jax"),
-    )
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        _cache_enabled = True
-    except Exception:
-        pass  # best-effort
-
-
-def use_pallas() -> bool:
-    return os.environ.get("PFV_PALLAS", "auto") == "1"
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
+    _cache_enabled = True

@@ -3,7 +3,7 @@
 
 Packet demux and entropy decode run on the host (C++), producing dense
 coefficient tensors; everything below — dequantization, inverse DCT, motion
-compensation, residual application — is one batched TPU program per plane.
+compensation, residual application — is one batched device program per plane.
 The decoder is configured entirely by the bitstream: q-tables ride in the
 header, per-frame indices select one per plane (dec.rs:96-111, 244-246).
 """

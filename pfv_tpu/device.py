@@ -1,7 +1,7 @@
 """Jitted device pipelines: whole-plane encode/decode steps.
 
 Each function processes every macroblock of a plane as one XLA program —
-the TPU-native replacement for the reference's rayon fan-out
+the batched replacement for the reference's rayon fan-out
 (/root/reference/src/common.rs:351-521). jax.jit caches compilations per
 plane shape (one luma + one chroma shape per video).
 
@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from pfv_tpu.ops.blocks import block_origins, blocks_to_plane, plane_to_blocks
-from pfv_tpu.ops.iframe import decode_blocks_best, encode_blocks_best
+from pfv_tpu.ops.iframe import decode_blocks, encode_blocks
 from pfv_tpu.ops.pframe import decode_delta_blocks, encode_plane_delta
 
 
@@ -33,8 +33,8 @@ def iframe_encode_plane(plane: jnp.ndarray, q_table: jnp.ndarray):
     """
     h, w = plane.shape
     blocks = plane_to_blocks(plane)
-    coeffs = encode_blocks_best(blocks, q_table)  # (N, 4, 64)
-    recon = blocks_to_plane(decode_blocks_best(coeffs, q_table), h, w)
+    coeffs = encode_blocks(blocks, q_table)  # (N, 4, 64)
+    recon = blocks_to_plane(decode_blocks(coeffs, q_table), h, w)
     return coeffs.reshape(coeffs.shape[0], 256), recon
 
 
@@ -43,7 +43,7 @@ def iframe_decode_plane(coeffs: jnp.ndarray, q_table: jnp.ndarray, like: jnp.nda
     """(N, 256) i16 coeffs -> padded (H, W) u8 plane (shape taken from `like`)."""
     h, w = like.shape
     n = coeffs.shape[0]
-    blocks = decode_blocks_best(coeffs.reshape(n, 4, 64), q_table)
+    blocks = decode_blocks(coeffs.reshape(n, 4, 64), q_table)
     return blocks_to_plane(blocks, h, w)
 
 
@@ -68,7 +68,7 @@ def pframe_encode_plane(
         blocks, ref_plane, by, bx, q_table, min_err
     )
     # own motion vectors are <= 15, so the in-loop recon can use the
-    # MXU window extraction (the gather formulation is ~50x slower on TPU)
+    # one-hot-matmul window extraction
     recon_blocks = decode_delta_blocks(
         coeffs, q_table, ref_plane, by, bx, mv_y, mv_x, has_coeff,
         mc_mode="mxu",

@@ -1,7 +1,7 @@
 """PFV Encoder: public streaming API, mirroring the reference
 (/root/reference/src/enc.rs:37-188).
 
-Per frame: planes are padded and encoded on the TPU as one batched program
+Per frame: planes are padded and encoded on the device as one batched program
 per plane (DCT/quantization, motion search, residuals, in-loop
 reconstruction); the quantized coefficient tensors come back to the host
 where the native C++ entropy coder (RLE + per-frame Huffman) muxes the
@@ -37,7 +37,7 @@ class Encoder:
 
     Mirrors pfv_rs::enc::Encoder::new (enc.rs:37-73): writes the container
     header on construction; `num_threads` is accepted for API parity but
-    ignored (macroblock parallelism is a single batched TPU launch).
+    ignored (macroblock parallelism is a single batched device launch).
     """
 
     def __init__(

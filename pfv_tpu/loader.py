@@ -1,6 +1,6 @@
 """VideoDataLoader: pipelined multi-video decode-to-RGB for training input.
 
-Dataloader mode (BASELINE.json config 5): a background worker entropy-demuxes
+Dataloader mode: a background worker entropy-demuxes
 and uploads video i+1 while the device decodes video i, so steady-state
 throughput is max(host_demux, device_decode) instead of their sum. Decoded
 frames are yielded as device-resident (F, H, W, 3) uint8 tensors, ready for
@@ -19,7 +19,7 @@ from typing import Iterable, Iterator
 import jax
 import jax.numpy as jnp
 
-from pfv_tpu.dataloader import _demux_packed_to_device, get_decoder
+from pfv_tpu.dataloader import _demux_packed_to_device, decode_packed
 
 
 class VideoDataLoader:
@@ -68,14 +68,8 @@ class VideoDataLoader:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                info, args = item
-                dec = get_decoder(info["width"], info["height"],
-                                  info["qtables"], info["decode_mode"])
-                if info["gop_shape"] is not None:
-                    g, l = info["gop_shape"]
-                    yield dec.decode_packed_gops(*args, g, l, "rgb")
-                else:
-                    yield dec.decode_rgb_packed(*args)
+                # the same decoder, path and program as decode_video_rgb
+                yield decode_packed(*item, "rgb")
         finally:
             stop.set()
 

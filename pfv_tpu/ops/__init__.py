@@ -1,1 +1,1 @@
-"""Batched TPU-native ops: DCT, quantization, blocks, motion, residuals, color."""
+"""Batched device ops: DCT, quantization, blocks, motion, residuals, color."""

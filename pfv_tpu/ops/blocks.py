@@ -1,6 +1,6 @@
 """Macroblock layout transforms: plane <-> (N,16,16) blocks <-> (N,4,64) subblocks.
 
-TPU-native replacement for the reference's per-block blit loops
+Batched replacement for the reference's per-block blit loops
 (/root/reference/src/common.rs:83-105, 327-349): pure reshape/transpose ops
 that XLA fuses into adjacent compute, turning the rayon fan-out over
 macroblocks (common.rs:373-378) into a single batched tensor program.

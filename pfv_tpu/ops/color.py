@@ -1,9 +1,9 @@
-"""YCbCr <-> RGB conversion and 4:2:0 chroma resampling, TPU-native.
+"""YCbCr <-> RGB conversion and 4:2:0 chroma resampling.
 
 The reference keeps RGB<->YUV only in its test helpers
 (/root/reference/src/lib.rs:337-395, JPEG constants per Wikipedia "YCbCr");
-the rebuild promotes it to library code so decoded frames can land in HBM as
-RGB tensors (dataloader mode). Float math is float32 with the reference's
+the rebuild promotes it to library code so decoded frames can land in
+device memory as RGB tensors (dataloader mode). Float math is float32 with the reference's
 association order; the u8 casts reproduce Rust's saturating `as u8`
 (truncate toward zero, clamp to 0..=255).
 
@@ -72,6 +72,25 @@ def rgb_to_yuv_np(rgb) -> tuple:
         return np.clip(np.trunc(x), 0.0, 255.0).astype(np.uint8)
 
     return sat(y), sat(u), sat(v)
+
+
+def yuv_to_rgb_np(y, u, v):
+    """numpy twin of yuv_to_rgb (identical float32 math + saturating cast):
+    the host reference that device RGB output is checked against."""
+    import numpy as np
+
+    f = np.float32
+    yf = y.astype(np.float32)
+    uf = u.astype(np.float32) - f(128.0)
+    vf = v.astype(np.float32) - f(128.0)
+    r = yf + (f(1.402) * vf)
+    g = yf - (f(0.344136) * uf) - (f(0.714136) * vf)
+    b = yf + (f(1.772) * uf)
+
+    def sat(x):
+        return np.clip(np.trunc(x), 0.0, 255.0).astype(np.uint8)
+
+    return np.stack([sat(r), sat(g), sat(b)], axis=-1)
 
 
 def reduce_plane(plane: jnp.ndarray) -> jnp.ndarray:

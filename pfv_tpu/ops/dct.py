@@ -1,4 +1,4 @@
-"""Integer 8x8 DCT / inverse DCT, TPU-native (batched over arbitrary leading axes).
+"""Integer 8x8 DCT / inverse DCT (batched over arbitrary leading axes).
 
 Implements the Bink-2-style integer butterfly transform used by the PFV codec
 (reference: /root/reference/src/dct.rs:139-293) with bit-exact semantics:
@@ -8,9 +8,9 @@ Implements the Bink-2-style integer butterfly transform used by the PFV codec
   arithmetic shifts (reference dct.rs:206-214, 267-274 — SURVEY.md quirk Q3).
 
 The transform is expressed as vectorized butterflies over a (..., 8) axis so a
-whole frame's worth of 8x8 subblocks runs as one fused XLA/VPU computation —
-the TPU-native replacement for the reference's per-block scalar loops under a
-rayon thread pool (reference common.rs:373-378).
+whole frame's worth of 8x8 subblocks runs as one fused XLA computation in
+place of the reference's per-block scalar loops under a rayon thread pool
+(reference common.rs:373-378).
 """
 
 from __future__ import annotations
@@ -87,7 +87,17 @@ def idct8(x: jnp.ndarray) -> jnp.ndarray:
 
     Mirrors reference dct.rs:241-293 (`DctMatrix8x8::idct`).
     """
-    c0, d4, c2, d6, c1, d5, c3, d7 = (x[..., j] for j in range(8))
+    return jnp.stack(idct8_lanes([x[..., j] for j in range(8)]), axis=-1)
+
+
+def idct8_lanes(v: list) -> list:
+    """idct8 over a list of 8 same-shape int32 arrays, elementwise.
+
+    The butterflies of `idct8` with each of the 8 inputs held as its own
+    array: the GPU step kernel keeps one coefficient slot per register
+    vector and runs the transform lane-wise through this function.
+    """
+    c0, d4, c2, d6, c1, d5, c3, d7 = v
 
     # odd stage 4
     c4 = d4
@@ -120,10 +130,8 @@ def idct8(x: jnp.ndarray) -> jnp.ndarray:
     a3 = b0 - b2
 
     # stage 1
-    return jnp.stack(
-        [a0 + a4, a1 + a5, a2 + a6, a3 + a7, a3 - a7, a2 - a6, a1 - a5, a0 - a4],
-        axis=-1,
-    )
+    return [a0 + a4, a1 + a5, a2 + a6, a3 + a7, a3 - a7, a2 - a6, a1 - a5,
+            a0 - a4]
 
 
 def fdct2d(m: jnp.ndarray) -> jnp.ndarray:

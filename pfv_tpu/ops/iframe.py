@@ -1,6 +1,6 @@
 """I-frame (intra) block pipelines: batched encode/decode of macroblocks.
 
-TPU-native formulation of the reference's per-block intra codec
+Batched formulation of the reference's per-block intra codec
 (/root/reference/src/common.rs:141-152, 238-252, 287-298, 313-325): every
 macroblock of a plane (or of all three planes concatenated) is processed in
 one fused XLA program instead of a rayon fan-out.
@@ -18,28 +18,6 @@ import jax.numpy as jnp
 from pfv_tpu.ops.blocks import blocks_to_subblocks, subblocks_to_blocks
 from pfv_tpu.ops.dct import FP_BITS, fdct2d, idct2d
 from pfv_tpu.ops.quant import dequantize, quantize
-
-
-def encode_blocks_best(blocks: jnp.ndarray, q_table: jnp.ndarray) -> jnp.ndarray:
-    """encode_blocks via the Pallas kernel when enabled (bit-identical)."""
-    from pfv_tpu import config
-
-    if config.use_pallas():
-        from pfv_tpu.ops.pallas.dct_kernel import encode_blocks_pallas
-
-        return encode_blocks_pallas(blocks, q_table)
-    return encode_blocks(blocks, q_table)
-
-
-def decode_blocks_best(coeffs: jnp.ndarray, q_table: jnp.ndarray) -> jnp.ndarray:
-    """decode_blocks via the Pallas kernel when enabled (bit-identical)."""
-    from pfv_tpu import config
-
-    if config.use_pallas():
-        from pfv_tpu.ops.pallas.idct_kernel import decode_blocks_pallas
-
-        return decode_blocks_pallas(coeffs, q_table)
-    return decode_blocks(coeffs, q_table)
 
 
 def encode_blocks(blocks: jnp.ndarray, q_table: jnp.ndarray) -> jnp.ndarray:
@@ -69,8 +47,7 @@ def decode_blocks_i32(coeffs: jnp.ndarray, q_table: jnp.ndarray) -> jnp.ndarray:
     """decode_blocks keeping the (0..255) pixels in i32.
 
     The fused-canvas decoder defers the u8 cast until after the final
-    block->plane transpose: u8 sub-lane transposes are ~5x slower on TPU
-    than full-lane i32 ones.
+    block->plane transpose and the residual arithmetic.
     """
     n = coeffs.shape[0]
     m = dequantize(coeffs, q_table)  # (N, 4, 64) i32 row-major

@@ -1,6 +1,6 @@
 """Motion estimation: batched 4-step logarithmic block search.
 
-TPU-native reformulation of the reference's recursive per-block search
+Batched reformulation of the reference's recursive per-block search
 (/root/reference/src/common.rs:154-236). The recursion over step sizes
 8 -> 4 -> 2 -> 1 is unrolled; at each level all N macroblocks evaluate all 9
 candidates as one batched gather + SSD reduction.
@@ -41,15 +41,13 @@ _gather_windows = jax.vmap(jax.vmap(_gather_window, in_axes=(None, 0, 0)), in_ax
 
 
 # ---------------------------------------------------------------------------
-# MXU window extraction: one-hot matmuls over static 48x48 patches.
+# Window extraction as one-hot matmuls over static 48x48 patches.
 #
-# A vmapped dynamic_slice lowers to an XLA gather, which the TPU executes
-# essentially scalar-by-scalar (~10 ms per 1080p plane — it dominated the
-# whole decode step). For |offset| <= 16 every block's window lies inside a
-# static 48x48 patch centered on the block, so window extraction becomes
-# two batched matmuls with one-hot row/column selectors — systolic-array
-# work at MXU rates (~50x faster). Exact: each output is a sum of exactly
-# one patch value (one-hot rows), accumulated in s32.
+# For |offset| <= 16 every block's window lies inside a static 48x48 patch
+# centered on the block, so window extraction becomes two batched matmuls
+# with one-hot row/column selectors instead of a gather. Exact: each
+# output is a sum of exactly one patch value (one-hot rows), accumulated
+# in s32.
 # ---------------------------------------------------------------------------
 
 
@@ -60,8 +58,8 @@ def block_patches(ref_plane: jnp.ndarray) -> jnp.ndarray:
     patches[b, 16+u, 16+v] = ref[by_b + u, bx_b + v] - 128 for u, v in
     [-16, 32) (-128 outside the plane), assembled from 9 static shifted
     tilings — no gather anywhere. The -128 centering puts u8 pixels in
-    int8 range so the one-hot window selection runs as s8 x s8 -> s32
-    matmuls on the MXU (4x the f32 rate, exact)."""
+    int8 range so the one-hot window selection runs as exact s8 x s8 ->
+    s32 matmuls."""
     h, w = ref_plane.shape
     gh, gw = h // 16, w // 16
     padded = jnp.pad(ref_plane, 16)
@@ -111,8 +109,8 @@ def predict_plane_select(
     Returns the (H, W) uint8 predicted plane:
       out[y, x] = canvas[y + dy[b], x + dx[b]],  b = block of (y, x).
 
-    Everything is full-width-minor elementwise selects — no gathers and no
-    sub-lane transposes (both measured ~5-50x slower on TPU):
+    Everything is full-width elementwise selects — no gathers and no
+    transposes:
     * vertical pass: 33-way select over 48-row bands. Because the later
       horizontal shift can pull pixels from a horizontally adjacent block,
       three variants are built, each using the dy of the block s in
@@ -193,8 +191,8 @@ def motion_search(
     cx = ox
 
     # All search offsets satisfy |mv| <= 8+4+2+1 = 15, inside the 48x48
-    # patches — every candidate window is two one-hot matmuls on the MXU
-    # instead of an XLA gather (the gather ran ~50x slower on TPU).
+    # patches — every candidate window is two one-hot matmuls instead of
+    # an XLA gather.
     patches = block_patches(ref_plane)
 
     best_err = None
@@ -246,8 +244,8 @@ def gather_predictions(
 
     Gather formulation — handles the format's full mv range (any window
     inside the padded plane). Returns (N, 16, 16) uint8 windows at
-    (by + mv_y, bx + mv_x). Slow on TPU (XLA gather); the dataloader uses
-    predict_blocks_mxu when |mv| <= 16 (always true for encoder output).
+    (by + mv_y, bx + mv_x). predict_blocks_mxu is the one-hot-matmul
+    twin for |mv| <= 16 (always true for encoder output).
     """
     y = by.astype(jnp.int32) + mv_y.astype(jnp.int32)
     x = bx.astype(jnp.int32) + mv_x.astype(jnp.int32)
@@ -257,7 +255,8 @@ def gather_predictions(
 def predict_blocks_mxu(
     ref_plane: jnp.ndarray, mv_y: jnp.ndarray, mv_x: jnp.ndarray
 ) -> jnp.ndarray:
-    """MXU twin of gather_predictions for raster-order full-grid blocks.
+    """One-hot-matmul twin of gather_predictions for raster-order
+    full-grid blocks.
 
     Valid for |mv| <= 16 (the reference encoder emits at most 15,
     enc.rs:448-449); bit-exact with the gather path on that domain.

@@ -1,5 +1,6 @@
-"""Pallas TPU kernels for the codec hot paths.
+"""Pallas kernels for the decode hot path (GPU, Triton route).
 
-Each kernel has a jnp twin in pfv_tpu.ops.* that serves as the bit-exact
-oracle; tests assert kernel == oracle on every element.
+Each kernel has a jnp twin in pfv_tpu.ops.* / pfv_tpu.dataloader that
+serves as the bit-exact oracle; tests assert kernel == oracle on every
+element (the kernels run in the Pallas interpreter on the CPU).
 """

@@ -1,6 +1,6 @@
 """P-frame (inter) block pipelines: residuals, delta encode/decode, batched.
 
-TPU-native formulation of the reference's delta codec
+Batched formulation of the reference's delta codec
 (/root/reference/src/common.rs:98-123, 206-236, 254-285, 300-311). All
 macroblocks of a plane run as one fused program; the skip-block decision
 becomes a mask instead of control flow, keeping shapes static for XLA
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from pfv_tpu.ops.blocks import blocks_to_subblocks
 from pfv_tpu.ops.dct import FP_BITS, fdct2d, tdiv_pow2
-from pfv_tpu.ops.iframe import decode_blocks_best
+from pfv_tpu.ops.iframe import decode_blocks
 from pfv_tpu.ops.motion import gather_predictions, motion_search
 from pfv_tpu.ops.quant import quantize
 
@@ -73,7 +73,7 @@ def decode_delta_blocks(
         pred = predict_blocks_mxu(ref_plane, mv_y, mv_x)
     else:
         pred = gather_predictions(ref_plane, by, bx, mv_y, mv_x)
-    res_u8 = decode_blocks_best(coeffs, q_table)
+    res_u8 = decode_blocks(coeffs, q_table)
     applied = apply_residuals(res_u8, pred)
     return jnp.where(has_coeff[:, None, None], applied, pred)
 

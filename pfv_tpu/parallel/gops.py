@@ -1,5 +1,5 @@
 """GOP-parallel decode: shard one video's keyframe-delimited runs across
-chips.
+devices.
 
 The PFV P-frame chain is sequential, but every I-frame resets the
 prediction state, so keyframe-delimited GOPs are mutually independent
@@ -7,7 +7,7 @@ prediction state, so keyframe-delimited GOPs are mutually independent
 sequential via lax.scan"). This module splits a single stream into GOPs,
 pads them to a common length, and decodes all GOPs as a vmapped scan —
 optionally shard_mapped over a `gops` mesh axis so one long video saturates
-multiple chips.
+multiple devices.
 
 Padding frames are synthesized as all-skip P-frames (copy previous recon)
 and dropped from the output.
@@ -83,7 +83,7 @@ def decode_video_rgb_gops(
     """Decode one .pfv stream with GOPs in parallel -> (F, H, W, 3) uint8.
 
     With a mesh, GOPs shard over `axis` (shard_map + vmap); without one,
-    they still decode as a single vmapped launch on one chip.
+    they still decode as a single vmapped launch on one device.
     """
     out = runtime.demux_file_sparse(data, num_threads)
     info = out[0]
@@ -156,8 +156,8 @@ def decode_video_rgb_gops(
 # Fast-path GOP sharding: split ONE stream at keyframe boundaries into
 # per-device substreams AT THE CONTAINER LEVEL (header + contiguous packet
 # runs + EOF), then decode them as a stream batch through the packed fast
-# path — so each shard runs the identical units/seq Pallas kernel program
-# the single-chip headline path runs (VERDICT r4 item 5). Shorter groups
+# path — so each shard runs the identical program the single-device path
+# runs. Shorter groups
 # are padded with synthesized all-skip P-frame packets (decode as copies,
 # sliced off by the frame-order stitch).
 # ---------------------------------------------------------------------------
@@ -192,8 +192,7 @@ def skip_pframe_packet(width: int, height: int) -> bytes:
     coefficients): 16-byte all-zero normalized frequency table (no RLE
     symbols are ever read, and both Huffman builders accept an empty
     tree — huffman.rs:95-97), q-table indices (2, 3, 3) matching the
-    encoder's P-frames (enc.rs:334-338; keeps _qidx_uniform true for the
-    fast path), then two zero header bits per block, byte-aligned. The
+    encoder's P-frames (enc.rs:334-338), then two zero header bits per block, byte-aligned. The
     decoder reconstructs it as a bit-exact copy of the previous frame."""
     import struct
 
@@ -271,7 +270,7 @@ def decode_video_gops_packed(
     want: str = "yuv",
 ):
     """Decode ONE .pfv stream with GOP runs sharded across the mesh, each
-    shard running the packed fast path (units/seq kernels) end-to-end.
+    shard running the packed fast path end-to-end.
 
     Returns the frame-ordered product: (F, H, W) y/u/v planes for
     want="yuv", (F, H, W, 3) for "rgb". The frame-order stitch is a

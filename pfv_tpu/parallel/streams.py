@@ -1,8 +1,8 @@
-"""Multi-stream decode sharded over a TPU device mesh.
+"""Multi-stream decode sharded over a device mesh.
 
 Scaling story (SURVEY.md §2): PFV streams/GOPs are mutually independent, so
 the natural multi-chip mapping is data parallelism over a `streams` mesh
-axis — placement-only sharding over ICI; frames within a stream stay
+axis — placement-only sharding; frames within a stream stay
 sequential in the on-device `lax.scan`. A `psum` over the mesh aggregates
 global statistics (the only collective the workload needs).
 
@@ -55,14 +55,14 @@ def make_sharded_decoder(
     """Jitted sharded multi-stream decoder.
 
     Returns fn(stacked (S, ...) tensors) -> ((S, F, H, W, 3) u8 RGB sharded
-    over `axis`, global mean-luma scalar aggregated with psum over ICI).
+    over `axis`, global mean-luma scalar aggregated with psum).
     S must be divisible by the mesh axis size.
     """
     dec = get_decoder(width, height, qtables)
 
     def local_decode(coeffs, mvx, mvy, has_coeff, ftype, qidx):
         rgb = jax.vmap(dec.decode_rgb_impl)(coeffs, mvx, mvy, has_coeff, ftype, qidx)
-        # global statistic over the mesh: mean luma proxy (exercises ICI)
+        # global statistic over the mesh: mean luma proxy (one collective)
         local_sum = jnp.sum(rgb.astype(jnp.float32)) / rgb.size
         global_mean = jax.lax.psum(local_sum, axis) / jax.lax.psum(
             jnp.ones(()), axis
@@ -90,7 +90,7 @@ def decode_stream_batch_rgb(
     """Demux + decode a batch of same-geometry streams across the mesh.
 
     Returns ((S, F, H, W, 3) uint8 RGB, global mean luma) — RGB stays
-    sharded across devices (one shard per chip's HBM).
+    sharded across devices (one shard per device's memory).
     """
     if mesh is None:
         mesh = make_stream_mesh()
@@ -104,23 +104,19 @@ def decode_stream_batch_rgb(
 
 # ---------------------------------------------------------------------------
 # Fast-path sharding: the sharded decode runs the SAME packed demux layout
-# and fused Pallas kernels as the single-chip headline path (VERDICT r4
-# item 5: parallel/ must not bypass the units/seq kernel work). shard_map
-# runs one program per device, so the whole-clip seq kernel — which cannot
-# vmap (manual DMA) — still executes per shard.
+# and step (kernel or XLA) as the single-device path: shard_map runs one
+# program per device.
 # ---------------------------------------------------------------------------
 
 
 def stack_streams_packed(datas: list[bytes], num_threads: int = 0):
     """Demux S same-geometry .pfv streams through the dataloader's own
-    fast-path demux (`demux_packed_host`) — (units, coff, meta) when the
-    tile/units layout engages, else (deltas, vals, meta) — and stack to
-    (S, ...) host arrays.
+    fast-path demux (`demux_packed_host`) — (deltas, vals, meta) — and
+    stack to (S, ...) host arrays.
 
-    Variable-length unit streams are zero-padded to the batch max: both
-    layouts make zero units inert by construction (tiles: chunks never
-    referenced by the coff table; pstep delta chain: delta 0 stays parked
-    at the densify scatter's sacrificial slot and adds value 0).
+    Variable-length unit streams are zero-padded to the batch max: a zero
+    unit is inert by construction (delta 0 stays parked at the densify
+    scatter's sacrificial slot and adds value 0).
 
     Returns (info, stacked): info is stream 0's, after asserting every
     stream selects the same geometry, q-tables, and decode path.
@@ -139,18 +135,11 @@ def stack_streams_packed(datas: list[bytes], num_threads: int = 0):
             raise ValueError("all streams in a batch must share geometry")
         if not np.array_equal(i["qtables"], i0["qtables"]):
             raise ValueError("all streams in a batch must share q-tables")
-        same_family = (i["decode_mode"].startswith("pstep")
-                       == i0["decode_mode"].startswith("pstep"))
-        if not same_family or (i.get("units", 0), i.get("gop_shape")) != (
-                i0.get("units", 0), i0.get("gop_shape")):
+        if (i["decode_mode"], i["gop_shape"]) != (i0["decode_mode"],
+                                                   i0["gop_shape"]):
             raise ValueError(
                 "all streams in a batch must select the same decode path; "
                 f"got {i['decode_mode']} vs {i0['decode_mode']}")
-        if i["decode_mode"] != i0["decode_mode"]:
-            # per-stream MC-ladder variants (gated/barrel/plain) are a
-            # content heuristic, not a correctness property — unify on
-            # stream 0's so every shard compiles ONE program
-            i["decode_mode"] = i0["decode_mode"]
 
     def padto(a, n):
         if a.shape[0] == n:
@@ -174,9 +163,9 @@ def make_sharded_packed_decoder(mesh: Mesh, info: dict,
     """Jitted sharded decoder over the FAST packed path.
 
     Each device decodes its local streams with the identical program the
-    single-chip path runs — in-kernel-densify seq Pallas kernel (units
-    layout), pstep step/seq kernel, or GOP width-concat — plus a psum'd
-    global mean-luma statistic over ICI. Streams per device > 1 unroll as
+    single-device path runs — the step kernel or the XLA step, per frame
+    or GOP-concurrent — plus a psum'd global mean-luma statistic.
+    Streams per device > 1 unroll as
     a static loop inside the per-device program.
 
     Returns fn(stacked) -> ((S, ...) product sharded over `axis`, global
@@ -185,8 +174,8 @@ def make_sharded_packed_decoder(mesh: Mesh, info: dict,
     from pfv_tpu.dataloader import get_decoder
 
     dec = get_decoder(info["width"], info["height"], info["qtables"],
-                      info["decode_mode"], info.get("units") or 0)
-    gs = info.get("gop_shape")
+                      info["decode_mode"])
+    gs = info["gop_shape"]
     fn1 = {"yuv": dec.decode_yuv_packed, "rgb": dec.decode_rgb_packed,
            "rgba": dec.decode_rgba_packed}[want]
 

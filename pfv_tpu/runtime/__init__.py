@@ -4,60 +4,74 @@ The serial entropy/bitstream layer lives in C++ (the reference implements it
 in Rust: rle.rs, huffman.rs and the payload halves of enc.rs/dec.rs); this
 module exposes it to Python via ctypes with numpy-array views. The library is
 compiled on first import with the system toolchain and cached next to the
-source.
+source under a name keyed to the source, compiler and host (_build_key).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libpfv_bitstream.so")
 _SRC_PATH = os.path.join(_NATIVE_DIR, "pfv_bitstream.cpp")
+# -O2 measures equal-or-faster than -O3 on the branchy bit-twiddling hot
+# loops here (-O3's extra vectorization does not apply and its code layout
+# costs ~5-20% on the header parse). -march=native is safe because the
+# build key below names the host.
+_CXXFLAGS = ("-O2", "-march=native", "-fPIC", "-std=c++17", "-shared",
+             "-pthread")
 
 _lock = threading.Lock()
 _lib = None
 
 
-def _build() -> None:
-    # -O2 measures equal-or-faster than -O3 on the branchy bit-twiddling
-    # hot loops here (A/B'd on the bench corpora; -O3's extra vectorization
-    # does not apply and its code layout costs ~5-20% on the header parse)
-    subprocess.run(
-        [
-            os.environ.get("CXX", "g++"),
-            "-O2",
-            "-march=native",
-            "-fPIC",
-            "-std=c++17",
-            "-shared",
-            "-pthread",
-            "-o",
-            _SO_PATH,
-            _SRC_PATH,
-        ],
-        check=True,
-        capture_output=True,
-    )
+def _build_key(cxx: str) -> str:
+    """Hash of everything the built library depends on: the source, the
+    compiler and its flags, and the host it was built for. A library built
+    anywhere else (another machine, another source) gets another name and
+    is never loaded."""
+    version = subprocess.run([cxx, "--version"], check=True,
+                             capture_output=True).stdout
+    h = hashlib.sha256()
+    with open(_SRC_PATH, "rb") as f:
+        h.update(f.read())
+    for part in (cxx, " ".join(_CXXFLAGS), platform.machine(),
+                 platform.node()):
+        h.update(part.encode() + b"\0")
+    h.update(version)
+    return h.hexdigest()[:16]
+
+
+def _so_path() -> str:
+    """Path of the library for this source and host, built if missing.
+
+    The build writes a private temporary file and renames it into place,
+    so concurrent first imports (parallel test workers) never load a
+    half-written library."""
+    cxx = os.environ.get("CXX", "g++")
+    path = os.path.join(_NATIVE_DIR,
+                        f"libpfv_bitstream-{_build_key(cxx)}.so")
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        subprocess.run([cxx, *_CXXFLAGS, "-o", tmp, _SRC_PATH], check=True,
+                       capture_output=True)
+        os.replace(tmp, path)
+    return path
 
 
 def get_lib() -> ctypes.CDLL:
-    """Load (building if stale/missing) the native bitstream library."""
+    """Load (building if missing) the native bitstream library."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        if (
-            not os.path.exists(_SO_PATH)
-            or os.path.getmtime(_SO_PATH) < os.path.getmtime(_SRC_PATH)
-        ):
-            _build()
-        lib = ctypes.CDLL(_SO_PATH)
+        lib = ctypes.CDLL(_so_path())
 
         i64 = ctypes.c_int64
         p_i16 = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
@@ -116,24 +130,6 @@ def get_lib() -> ctypes.CDLL:
             p_u16, ctypes.c_void_p, p_u8, p_u8,
             ctypes.c_void_p, ctypes.c_void_p, i64,
             ctypes.c_void_p, ctypes.c_int32,
-        ]
-
-        lib.pfv_demux_file_sparse_pstep.restype = i64
-        lib.pfv_demux_file_sparse_pstep.argtypes = [
-            p_u8, i64, i64, i64, i64,
-            p_u16, ctypes.c_void_p, p_u8, p_u8,
-            ctypes.c_void_p, ctypes.c_void_p, i64,
-            ctypes.c_void_p, ctypes.c_int32,
-            p_i32, p_i32, i64, i64,
-        ]
-
-        lib.pfv_demux_file_sparse_tiles.restype = i64
-        lib.pfv_demux_file_sparse_tiles.argtypes = [
-            p_u8, i64, i64, i64, i64,
-            p_u16, ctypes.c_void_p, p_u8, p_u8,
-            ctypes.c_void_p, i64,
-            p_i32, i64, ctypes.c_void_p, ctypes.c_int32,
-            p_i32, p_i32, p_i32, i64,
         ]
 
         lib.pfv_unpack_block_headers.restype = None
@@ -448,8 +444,7 @@ def _scratch_buf(key: str, n: int, dtype) -> np.ndarray:
 
 def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
                              pad_to_multiple: int = 1,
-                             reuse_scratch: bool = False,
-                             pstep_tables=None):
+                             reuse_scratch: bool = False):
     """Sparse whole-file demux, device-upload form.
 
     Returns (info, deltas (np,) u16, vals (np,) i8, bh (F, B) u16,
@@ -469,13 +464,6 @@ def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
     headers). With reuse_scratch=True the returned arrays are views into
     module-level scratch buffers, valid only until the next
     reuse_scratch call (the dataloader hot path: upload-then-drop).
-
-    pstep_tables = (off_of_b (B,) i32, r_of_zz (64,) i32, row_span int)
-    switches to the v2 layout: unit positions chain through the fused step
-    kernel's coefficient space (frame, dense row, stripe, lane) with the
-    unzigzag applied at demux time — the device scatter then lands
-    directly in the kernel's input layout (no relayout program). Requires
-    row_span < 2^24 and F*64*row_span < 2^31.
     """
     lib = get_lib()
     info, off = parse_header(data)
@@ -495,8 +483,6 @@ def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
     if nf < 0:
         raise ValueError(f"corrupt packet stream (code {nf})")
     span = total_blocks * 256
-    if pstep_tables is not None:
-        span = 64 * int(pstep_tables[2])
     if nf * span >= 2**31:
         raise ValueError("video too large for sparse flat indexing; chunk it")
     # worst-case units per payload byte is 69 (a 15-bit coefficient under a
@@ -530,30 +516,14 @@ def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
         vals = np.empty(cap, dtype=np.int8)
     bounds = _mv_bounds_packed(ly, lc)
     mv_absmax = np.zeros(1, dtype=np.int16)
-    if pstep_tables is not None:
-        off_of_b, r_of_zz, row_span = pstep_tables
-        off_of_b = np.ascontiguousarray(off_of_b, dtype=np.int32)
-        r_of_zz = np.ascontiguousarray(r_of_zz, dtype=np.int32)
-        if row_span >= 1 << 24:
-            raise ValueError("geometry too wide for pstep unit layout")
-        nunits = lib.pfv_demux_file_sparse_pstep(
-            buf, len(data), off, total_blocks, nf,
-            bh.reshape(-1), bounds.ctypes.data_as(ctypes.c_void_p),
-            ftype, qidx.reshape(-1),
-            deltas.ctypes.data_as(ctypes.c_void_p),
-            vals.ctypes.data_as(ctypes.c_void_p),
-            cap, mv_absmax.ctypes.data_as(ctypes.c_void_p), num_threads,
-            off_of_b, r_of_zz, row_span, yb + cb,
-        )
-    else:
-        nunits = lib.pfv_demux_file_sparse(
-            buf, len(data), off, total_blocks, nf,
-            bh.reshape(-1), bounds.ctypes.data_as(ctypes.c_void_p),
-            ftype, qidx.reshape(-1),
-            deltas.ctypes.data_as(ctypes.c_void_p),
-            vals.ctypes.data_as(ctypes.c_void_p),
-            cap, mv_absmax.ctypes.data_as(ctypes.c_void_p), num_threads,
-        )
+    nunits = lib.pfv_demux_file_sparse(
+        buf, len(data), off, total_blocks, nf,
+        bh.reshape(-1), bounds.ctypes.data_as(ctypes.c_void_p),
+        ftype, qidx.reshape(-1),
+        deltas.ctypes.data_as(ctypes.c_void_p),
+        vals.ctypes.data_as(ctypes.c_void_p),
+        cap, mv_absmax.ctypes.data_as(ctypes.c_void_p), num_threads,
+    )
     if nunits == -8:
         raise ValueError(
             "corrupt P-frame payload: motion vector out of bounds"
@@ -562,95 +532,12 @@ def demux_file_sparse_packed(data: bytes, num_threads: int = 0,
         raise ValueError(f"sparse demux failed (code {nunits})")
     info["yb"], info["cb"], info["total_blocks"] = yb, cb, total_blocks
     info["mv_absmax"] = int(mv_absmax[0])
-    info["unit_layout"] = "pstep" if pstep_tables is not None else "stream"
     m = pad_to_multiple
     padded = ((nunits + m - 1) // m) * m if m > 1 else nunits
     if padded > nunits:
         deltas[nunits:padded] = 0
         vals[nunits:padded] = 0
     return info, deltas[:padded], vals[:padded], bh, ftype, qidx
-
-
-def demux_file_sparse_tiles(data: bytes, tile_tables, chunk: int = 128,
-                            num_threads: int = 0,
-                            reuse_scratch: bool = False):
-    """Tile-bucketed unit demux (v3) for the seq kernel's IN-KERNEL densify.
-
-    Units are grouped per (frame, stripe) tile in fixed-size zero-padded
-    chunks of `chunk`: units (n_chunks, chunk) u32 packs one unit per
-    word, idx << 16 | (u16)(i16)val — idx is the tile-local coefficient
-    position (dense row r << 10 | lane, lane < 1024 = 2*scp of the pstep
-    layout), val the sign-extended i8 addend (|v| > 127 spans several
-    same-position units; the kernel's one-hot matmul accumulation sums
-    them — order within a tile is irrelevant, so unlike the v1/v2 sparse
-    forms there is NO delta chain and NO bookkeeping units). Chunk k of
-    tile t = frame*gch + stripe lives at rows coff[t] <= k < coff[t+1].
-    Zero-padding words are (idx 0, val 0) scatter-add no-ops.
-
-    tile_tables = (stripe_of_b (B,) i32, lanebase_of_b (B,) i32,
-    r_of_zz (64,) i32, gch) — see dataloader._tile_tables.
-
-    Returns (info, units, coff (F*gch + 1,) i32, bh (F, B) u16,
-    ftype (F,) u8, qidx (F, 3) u8)."""
-    lib = get_lib()
-    info, off = parse_header(data)
-    w, h = info["width"], info["height"]
-
-    def pad16(x):
-        return x + (16 - x % 16) % 16
-
-    ly = (pad16(h), pad16(w))
-    lc = (pad16(h // 2), pad16(w // 2))
-    yb = (ly[0] // 16) * (ly[1] // 16)
-    cb = (lc[0] // 16) * (lc[1] // 16)
-    total_blocks = yb + 2 * cb
-
-    stripe_of_b, lanebase_of_b, r_of_zz, gch = tile_tables
-    stripe_of_b = np.ascontiguousarray(stripe_of_b, dtype=np.int32)
-    lanebase_of_b = np.ascontiguousarray(lanebase_of_b, dtype=np.int32)
-    r_of_zz = np.ascontiguousarray(r_of_zz, dtype=np.int32)
-
-    buf = np.frombuffer(data, dtype=np.uint8)
-    nf = lib.pfv_count_frames(buf, len(data), off)
-    if nf < 0:
-        raise ValueError(f"corrupt packet stream (code {nf})")
-    # per-frame unit bound sums to min(69*len, 129*span*nf) (see the sparse
-    # demux cap analysis); chunk quantization adds one short chunk per tile
-    cap_chunks = (min(69 * len(data), 129 * total_blocks * 256 * nf) // chunk
-                  + nf * (gch + 1) + 64)
-    if reuse_scratch:
-        bh = _scratch_buf("bh", nf * total_blocks, np.uint16)[
-            : nf * total_blocks].reshape(nf, total_blocks)
-        ftype = _scratch_buf("ftype", nf, np.uint8)[:nf]
-        qidx = _scratch_buf("qidx", nf * 3, np.uint8)[: nf * 3].reshape(nf, 3)
-        units = _scratch_buf("units", cap_chunks * chunk, np.uint32)[
-            : cap_chunks * chunk].reshape(cap_chunks, chunk)
-        coff = _scratch_buf("coff", nf * gch + 1, np.int32)[: nf * gch + 1]
-    else:
-        bh = np.empty((nf, total_blocks), dtype=np.uint16)
-        ftype = np.empty(nf, dtype=np.uint8)
-        qidx = np.empty((nf, 3), dtype=np.uint8)
-        units = np.empty((cap_chunks, chunk), dtype=np.uint32)
-        coff = np.empty(nf * gch + 1, dtype=np.int32)
-    bounds = _mv_bounds_packed(ly, lc)
-    mv_absmax = np.zeros(1, dtype=np.int16)
-    nchunks = lib.pfv_demux_file_sparse_tiles(
-        buf, len(data), off, total_blocks, nf,
-        bh.reshape(-1), bounds.ctypes.data_as(ctypes.c_void_p),
-        ftype, qidx.reshape(-1),
-        units.ctypes.data_as(ctypes.c_void_p), cap_chunks,
-        coff, chunk, mv_absmax.ctypes.data_as(ctypes.c_void_p),
-        num_threads, stripe_of_b, lanebase_of_b, r_of_zz, gch,
-    )
-    if nchunks == -8:
-        raise ValueError(
-            "corrupt P-frame payload: motion vector out of bounds")
-    if nchunks < 0:
-        raise ValueError(f"tile demux failed (code {nchunks})")
-    info["yb"], info["cb"], info["total_blocks"] = yb, cb, total_blocks
-    info["mv_absmax"] = int(mv_absmax[0])
-    info["unit_layout"] = "tiles"
-    return info, units[:nchunks], coff, bh, ftype, qidx
 
 
 def unpack_block_headers(bh: np.ndarray):

@@ -1,11 +1,11 @@
 // PFV v2.1.1 bitstream runtime: RLE + Huffman entropy coding, payload
 // mux/demux, and a single-core scalar reference decoder.
 //
-// This is the host-side, inherently-serial half of the TPU rebuild (the
+// This is the host-side, inherently-serial half of the codec (the
 // reference implements it in Rust: /root/reference/src/rle.rs,
 // /root/reference/src/huffman.rs, and the payload halves of enc.rs/dec.rs).
-// Everything numeric/parallel lives on the TPU in JAX/Pallas; this library
-// only converts between payload bytes and dense coefficient tensors.
+// Everything numeric/parallel runs on the accelerator in JAX/Pallas; this
+// library only converts between payload bytes and coefficient tensors.
 //
 // Bit-exactness contract (SURVEY.md quirks):
 //  Q2  Huffman construction: stable sort descending by frequency (ties keep
@@ -517,7 +517,7 @@ inline bool decode_coeff_stream(const HuffTree& t, const PairTable& pt,
 // ceil(|v|/127) units at the same position (delta 0) whose addends sum to
 // v — ~3% of nonzeros at q2, so the unit stream stays ~nonzero-sized.
 // RLE already enumerates nonzeros, so this touches no dense memory — the
-// fast path for the TPU dataloader. Gaps over 65535 emit zero-value
+// fast path for the device dataloader. Gaps over 65535 emit zero-value
 // escape units; per-frame tails (sparse_tail) park the running sum
 // exactly at the next frame's base so frames decode independently across
 // threads.
@@ -1170,581 +1170,7 @@ int64_t decode_payload_sparse(const uint8_t* payload, int64_t len,
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// pstep-layout sparse demux (v2): units bucketed by dense ROW so the device
-// scatter lands directly in the fused step kernel's coefficient layout
-//   (frame, row r, stripe s, lane)  with  lane = 4*gc + 2*sr + sc
-// flat key = frame*64*row_span + r*row_span + off_of_b[block] + subblock,
-// where r already applies the unzigzag permutation (the kernel then needs
-// no row shuffle) and off_of_b = s*row_span_stride... (precomputed by the
-// Python caller: s*2*scp + 4*gc in canvas geometry). Within a frame the
-// stream visits blocks in [Y | U | V] order; Y and U rows ascend together
-// (U stripes sit below all Y stripes) but V blocks revisit the chroma
-// stripes, so each row bucket is two ascending runs (Y+U, then V) merged
-// at emission. Delta/escape/tail semantics are identical to the v1 form
-// (see pfv_demux_file_sparse).
-// ---------------------------------------------------------------------------
-
-struct PstepBuckets {
-  // per dense row: packed entries (pos_in_row << 8 | (uint8_t)val_i8);
-  // pos_in_row < row_span (caller guarantees row_span < 2^24)
-  std::vector<uint32_t> rows[64];
-  size_t vstart[64];  // index where the V run begins (SIZE_MAX: no V yet)
-  int64_t n = 0;      // units appended (shares the per-frame cap analysis)
-  int64_t cap = 0;
-  bool overflow = false;
-
-  void reset(int64_t cap_) {
-    for (auto& r : rows) r.clear();
-    for (auto& v : vstart) v = SIZE_MAX;
-    n = 0;
-    cap = cap_;
-    overflow = false;
-  }
-
-  // Append coefficient v at (row r, pos), splitting |v| > 127 into i8
-  // units exactly like sparse_emit_value.
-  inline void add(int r, uint32_t pos, int32_t v, bool in_v) {
-    auto& bkt = rows[r];
-    if (in_v && vstart[r] == SIZE_MAX) vstart[r] = bkt.size();
-    int32_t step = v > 0 ? 127 : -127;
-    for (;;) {
-      if (n >= cap) {
-        overflow = true;
-        return;
-      }
-      if (v >= -127 && v <= 127) {
-        bkt.push_back((pos << 8) | (uint8_t)(int8_t)v);
-        n++;
-        return;
-      }
-      bkt.push_back((pos << 8) | (uint8_t)(int8_t)step);
-      n++;
-      v -= step;
-    }
-  }
-};
-
-// Walk the buckets in row order, merge each row's two ascending runs, and
-// append the delta/escape chain to `out` (keys ascend strictly within and
-// across rows). frame_base = f * 64 * row_span.
-inline bool pstep_emit_frame(PstepBuckets& bkt, int64_t frame_base,
-                             int64_t row_span, SparseOut& out) {
-  for (int r = 0; r < 64; r++) {
-    const auto& a = bkt.rows[r];
-    const size_t nr = a.size();
-    const size_t vs = bkt.vstart[r] == SIZE_MAX ? nr : bkt.vstart[r];
-    const int64_t row_base = frame_base + (int64_t)r * row_span;
-    size_t i = 0, j = vs;
-    while (i < vs || j < nr) {
-      uint32_t e;
-      // lanes of the Y+U and V runs are disjoint, so ties cannot occur
-      if (i < vs && (j >= nr || (a[i] >> 8) < (a[j] >> 8))) {
-        e = a[i++];
-      } else {
-        e = a[j++];
-      }
-      int64_t key = row_base + (int64_t)(e >> 8);
-      int64_t d = key - out.prev;
-      while (d > 65535) {
-        if (out.n >= out.cap) {
-          out.overflow = true;
-          return false;
-        }
-        out.deltas[out.n] = 65535u;
-        out.vals[out.n] = 0;
-        out.n++;
-        out.prev += 65535;
-        d -= 65535;
-      }
-      if (out.n >= out.cap) {
-        out.overflow = true;
-        return false;
-      }
-      out.deltas[out.n] = (uint16_t)d;
-      out.vals[out.n] = (int8_t)(uint8_t)(e & 0xff);
-      out.n++;
-      out.prev = key;
-    }
-  }
-  return true;
-}
-
-// Payload decode into pstep buckets: same entropy pass as
-// decode_payload_sparse, different sink. off_of_b maps a stream block to
-// s*2*scp + 4*gc; r_of_zz maps a zigzag slot to its dense (row-major,
-// unzigzagged) row; vstart_block marks the first V-region block.
-int64_t decode_payload_pstep(const uint8_t* payload, int64_t len,
-                             uint8_t ptype, int64_t total_blocks,
-                             uint16_t* bh, const MvBounds16* bounds16,
-                             uint8_t* qidx, const int32_t* off_of_b,
-                             const int32_t* r_of_zz, int64_t vstart_block,
-                             PstepBuckets& bkt, int16_t* mv_absmax) {
-  BitReader br(payload, (uint64_t)len);
-  uint8_t table[16];
-  for (int i = 0; i < 16; i++) table[i] = (uint8_t)br.read(8);
-  HuffTree tree;
-  huff_from_table(table, &tree);
-  PairTable pt;
-  build_pair_table(tree, &pt);
-  for (int i = 0; i < 3; i++) qidx[i] = (uint8_t)br.read(8);
-  if (br.error) return -2;
-
-  auto sink = [&](int64_t block, int64_t i, int16_t v, int inc) {
-    if (!inc) return;
-    int p = (int)(i & 255);
-    bkt.add(r_of_zz[p & 63],
-            (uint32_t)(off_of_b[block] + (p >> 6)), v,
-            block >= vstart_block);
-  };
-
-  if (ptype == 1) {
-    for (int64_t b = 0; b < total_blocks; b++) bh[b] = 1u << 14;
-    if (!decode_coeff_entries(tree, pt, br, total_blocks * 256,
-                              [&](int64_t i, int16_t v, int inc) {
-                                sink(i >> 8, i, v, inc);
-                              }) ||
-        bkt.overflow)
-      return -3;
-    return 0;
-  }
-  std::vector<int32_t> clist(total_blocks);
-  int64_t ncoeff = 0;
-  int rc = read_block_headers_packed(br, total_blocks, bh, clist.data(),
-                                     &ncoeff);
-  if (rc != 0) return rc;
-  if (bounds16 &&
-      validate_mv_lanes(bh, total_blocks, bounds16->lox.data(),
-                        bounds16->hix.data(), bounds16->loy.data(),
-                        bounds16->hiy.data(), mv_absmax))
-    return -8;
-  if (!decode_coeff_entries(tree, pt, br, ncoeff * 256,
-                            [&](int64_t i, int16_t v, int inc) {
-                              sink(clist[i >> 8], i, v, inc);
-                            }) ||
-      bkt.overflow)
-    return -3;
-  return 0;
-}
-
 }  // namespace
-
-extern "C" {
-
-// pstep-layout sparse whole-file demux (v2): like pfv_demux_file_sparse
-// but unit positions chain through the fused step kernel's coefficient
-// space — flat key = (frame*64 + r) * row_span + off_of_b[block] + sub,
-// r = r_of_zz[zigzag slot] (unzigzag applied at demux time). Each frame's
-// tail parks at (f+1)*64*row_span; the final unit parks at
-// frames*64*row_span, the densify scatter's sacrificial slot. Caller must
-// guarantee row_span < 2^24 and frames*64*row_span < 2^31.
-int64_t pfv_demux_file_sparse_pstep(
-    const uint8_t* file, int64_t len, int64_t header_off,
-    int64_t total_blocks, int64_t max_frames, uint16_t* bh_out,
-    const int32_t* mv_bounds, uint8_t* ftype, uint8_t* qidx,
-    uint16_t* deltas_out, int8_t* vals_out, int64_t out_cap,
-    int16_t* mv_absmax_out, int32_t num_threads, const int32_t* off_of_b,
-    const int32_t* r_of_zz, int64_t row_span, int64_t vstart_block) {
-  struct Packet {
-    const uint8_t* payload;
-    uint32_t plen;
-    uint8_t ptype;
-  };
-  std::vector<Packet> pkts;
-  int64_t off = header_off;
-  while (off + 5 <= len) {
-    uint8_t pt = file[off];
-    uint32_t plen = (uint32_t)file[off + 1] | (uint32_t)file[off + 2] << 8 |
-                    (uint32_t)file[off + 3] << 16 |
-                    (uint32_t)file[off + 4] << 24;
-    if (off + 5 + (int64_t)plen > len) return -4;
-    const uint8_t* payload = file + off + 5;
-    off += 5 + plen;
-    if (pt == 0) break;
-    if ((pt == 1 && plen > 0) || pt == 2) pkts.push_back({payload, plen, pt});
-    if ((int64_t)pkts.size() >= max_frames) break;
-  }
-  int64_t frames = (int64_t)pkts.size();
-  const int64_t span = (int64_t)64 * row_span;
-
-  // Same per-frame unit-count analysis as v1 (the unit count is layout-
-  // independent); the escape bound grows with the padded span.
-  const int64_t tail_bound = span / 65535 + 1;
-  auto frame_bound = [&](int64_t f) {
-    return std::min(69 * (int64_t)pkts[f].plen + 8, 129 * span) + tail_bound;
-  };
-
-  int nthreads = num_threads > 0 ? num_threads
-                                 : (int)std::thread::hardware_concurrency();
-  nthreads = std::max(1, std::min<int>(nthreads, frames > 0 ? (int)frames : 1));
-
-  MvBounds16 bounds16;
-  if (mv_bounds) widen_mv_bounds(mv_bounds, total_blocks, &bounds16);
-  const MvBounds16* b16 = mv_bounds ? &bounds16 : nullptr;
-
-  std::vector<int16_t> mvmax(std::max<int64_t>(frames, 1), 0);
-  auto decode_frame = [&](int64_t f, PstepBuckets& bkt,
-                          SparseOut& out) -> int64_t {
-    const Packet& p = pkts[f];
-    ftype[f] = p.ptype;
-    bkt.reset(frame_bound(f));
-    out.n = 0;
-    out.prev = f * span;
-    out.overflow = false;
-    int64_t rc = decode_payload_pstep(
-        p.payload, p.plen, p.ptype, total_blocks, bh_out + f * total_blocks,
-        b16, qidx + f * 3, off_of_b, r_of_zz, vstart_block, bkt, &mvmax[f]);
-    if (rc == 0 && !pstep_emit_frame(bkt, f * span, row_span, out)) rc = -3;
-    if (rc == 0 && !sparse_tail(out, (f + 1) * span)) rc = -3;
-    return rc;
-  };
-
-  auto report_mvmax = [&]() {
-    if (!mv_absmax_out) return;
-    int16_t m = 0;
-    for (int64_t f = 0; f < frames; f++) m = std::max(m, mvmax[f]);
-    *mv_absmax_out = m;
-  };
-
-  if (nthreads <= 1 && deltas_out != nullptr) {
-    PstepBuckets bkt;
-    SparseOut out;
-    int64_t pos = 0;
-    for (int64_t f = 0; f < frames; f++) {
-      out.deltas = deltas_out + pos;
-      out.vals = vals_out + pos;
-      out.cap = std::min(frame_bound(f), out_cap - pos);
-      int64_t rc = decode_frame(f, bkt, out);
-      if (rc != 0) return out.overflow && pos + frame_bound(f) > out_cap
-                              ? (int64_t)-6
-                              : rc;
-      pos += out.n;
-    }
-    report_mvmax();
-    return pos;
-  }
-
-  std::vector<int64_t> fcap(frames + 1, 0);
-  for (int64_t f = 0; f < frames; f++)
-    fcap[f + 1] = fcap[f] + frame_bound(f);
-  std::unique_ptr<uint16_t[]> delta_scratch(new uint16_t[fcap[frames]]);
-  std::unique_ptr<int8_t[]> val_scratch(new int8_t[fcap[frames]]);
-  std::vector<SparseOut> fout(frames);
-  std::atomic<int64_t> next(0);
-  std::atomic<int64_t> err(0);
-  auto worker = [&]() {
-    PstepBuckets bkt;
-    for (;;) {
-      int64_t f = next.fetch_add(1);
-      if (f >= frames) return;
-      fout[f].deltas = delta_scratch.get() + fcap[f];
-      fout[f].vals = val_scratch.get() + fcap[f];
-      fout[f].cap = fcap[f + 1] - fcap[f];
-      int64_t rc = decode_frame(f, bkt, fout[f]);
-      if (rc != 0) err.store(rc);
-    }
-  };
-  if (nthreads <= 1) {
-    worker();
-  } else {
-    std::vector<std::thread> pool;
-    for (int i = 0; i < nthreads; i++) pool.emplace_back(worker);
-    for (auto& t : pool) t.join();
-  }
-  if (err.load() != 0) return err.load();
-
-  int64_t nunits = 0;
-  for (auto& o : fout) nunits += o.n;
-  report_mvmax();
-  if (deltas_out == nullptr) return nunits;
-  if (nunits > out_cap) return -6;
-  int64_t pos = 0;
-  for (int64_t f = 0; f < frames; f++) {
-    std::memcpy(deltas_out + pos, fout[f].deltas, fout[f].n * 2);
-    std::memcpy(vals_out + pos, fout[f].vals, fout[f].n);
-    pos += fout[f].n;
-  }
-  return nunits;
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// tile-bucketed unit demux (v3): units grouped per (frame, stripe) TILE in
-// fixed-size chunks of `chunk` units, for the seq kernel's IN-KERNEL densify
-// (ops/pallas/step_kernel.py units variant). Per unit one u32 word:
-// idx << 16 | (uint16_t)(int16_t)val, where idx packs the tile-local
-// coefficient position (dense row r << 10 | lane, lane < 1024 = 2*scp) and
-// val (i8, sign-extended into the low half) the addend (|v| > 127 spans
-// several same-position units, exactly like the v1/v2 sparse forms — the
-// kernel's one-hot matmul accumulation sums them). The single-u32 form is
-// Mosaic-driven: 32-bit VMEM tiles have no sublane packing, so the kernel's
-// dynamic per-chunk DMA slice (units.at[k], a (1, 1, chunk) slab) is always
-// tile-aligned, and one array means one DMA per chunk. Unlike v1/v2 there is
-// NO delta chain and NO bookkeeping units: order within a tile is irrelevant
-// to a matmul accumulation, zero-value coefficients contribute nothing and
-// are dropped. Chunk k of tile t lives at rows coff[t] <= k < coff[t+1] of
-// the (n_chunks, chunk) output array; short final chunks are zero-padded
-// (val 0 = no-op).
-// ---------------------------------------------------------------------------
-
-namespace {
-
-struct TileBuckets {
-  std::vector<std::vector<uint32_t>> tiles;  // (idx16 << 8) | (uint8_t)val
-  int64_t n = 0;  // units appended (shares the per-frame cap analysis)
-  int64_t cap = 0;
-  bool overflow = false;
-
-  void reset(int64_t gch, int64_t cap_) {
-    tiles.resize((size_t)gch);
-    for (auto& t : tiles) t.clear();
-    n = 0;
-    cap = cap_;
-    overflow = false;
-  }
-
-  inline void add(int stripe, uint32_t idx, int32_t v) {
-    if (v == 0) return;  // no delta chain: zeros contribute nothing
-    auto& b = tiles[(size_t)stripe];
-    int32_t step = v > 0 ? 127 : -127;
-    for (;;) {
-      if (n >= cap) {
-        overflow = true;
-        return;
-      }
-      if (v >= -127 && v <= 127) {
-        b.push_back((idx << 8) | (uint8_t)(int8_t)v);
-        n++;
-        return;
-      }
-      b.push_back((idx << 8) | (uint8_t)(int8_t)step);
-      n++;
-      v -= step;
-    }
-  }
-};
-
-// Same entropy pass as decode_payload_pstep, tile-bucket sink.
-int64_t decode_payload_tiles(const uint8_t* payload, int64_t len,
-                             uint8_t ptype, int64_t total_blocks,
-                             uint16_t* bh, const MvBounds16* bounds16,
-                             uint8_t* qidx, const int32_t* stripe_of_b,
-                             const int32_t* lanebase_of_b,
-                             const int32_t* r_of_zz, TileBuckets& bkt,
-                             int16_t* mv_absmax) {
-  BitReader br(payload, (uint64_t)len);
-  uint8_t table[16];
-  for (int i = 0; i < 16; i++) table[i] = (uint8_t)br.read(8);
-  HuffTree tree;
-  huff_from_table(table, &tree);
-  PairTable pt;
-  build_pair_table(tree, &pt);
-  for (int i = 0; i < 3; i++) qidx[i] = (uint8_t)br.read(8);
-  if (br.error) return -2;
-
-  auto sink = [&](int64_t block, int64_t i, int16_t v, int inc) {
-    if (!inc) return;
-    int p = (int)(i & 255);
-    uint32_t idx = ((uint32_t)r_of_zz[p & 63] << 10) |
-                   (uint32_t)(lanebase_of_b[block] + (p >> 6));
-    bkt.add(stripe_of_b[block], idx, v);
-  };
-
-  if (ptype == 1) {
-    for (int64_t b = 0; b < total_blocks; b++) bh[b] = 1u << 14;
-    if (!decode_coeff_entries(tree, pt, br, total_blocks * 256,
-                              [&](int64_t i, int16_t v, int inc) {
-                                sink(i >> 8, i, v, inc);
-                              }) ||
-        bkt.overflow)
-      return -3;
-    return 0;
-  }
-  std::vector<int32_t> clist(total_blocks);
-  int64_t ncoeff = 0;
-  int rc = read_block_headers_packed(br, total_blocks, bh, clist.data(),
-                                     &ncoeff);
-  if (rc != 0) return rc;
-  if (bounds16 &&
-      validate_mv_lanes(bh, total_blocks, bounds16->lox.data(),
-                        bounds16->hix.data(), bounds16->loy.data(),
-                        bounds16->hiy.data(), mv_absmax))
-    return -8;
-  if (!decode_coeff_entries(tree, pt, br, ncoeff * 256,
-                            [&](int64_t i, int16_t v, int inc) {
-                              sink(clist[i >> 8], i, v, inc);
-                            }) ||
-      bkt.overflow)
-    return -3;
-  return 0;
-}
-
-// Emit one frame's buckets as zero-padded chunks; advances *chunk_pos and
-// fills coff_out[f*gch+1 .. f*gch+gch] with cumulative chunk offsets.
-inline bool tiles_emit_frame(TileBuckets& bkt, int64_t gch, int64_t chunk,
-                             uint32_t* units_out, int64_t cap_chunks,
-                             int32_t* coff_out, int64_t* chunk_pos) {
-  int64_t cpos = *chunk_pos;
-  for (int64_t s = 0; s < gch; s++) {
-    const auto& b = bkt.tiles[(size_t)s];
-    const int64_t cnt = (int64_t)b.size();
-    const int64_t nch = (cnt + chunk - 1) / chunk;
-    if (cpos + nch > cap_chunks) return false;
-    uint32_t* du = units_out + cpos * chunk;
-    for (int64_t k = 0; k < cnt; k++) {
-      const uint32_t w = b[(size_t)k];
-      du[k] = ((w >> 8) << 16) |
-              (uint32_t)(uint16_t)(int16_t)(int8_t)(uint8_t)(w & 0xff);
-    }
-    const int64_t pad = nch * chunk - cnt;
-    if (pad) std::memset(du + cnt, 0, (size_t)pad * 4);
-    cpos += nch;
-    coff_out[s + 1] = (int32_t)cpos;
-  }
-  *chunk_pos = cpos;
-  return true;
-}
-
-}  // namespace
-
-extern "C" {
-
-// Whole-file tile demux. Outputs: units (cap_chunks x chunk) u32 words
-// (idx << 16 | (u16)(i16)val — see tiles_emit_frame), coff_out
-// (frames*gch + 1) cumulative chunk offsets (coff_out[0] = 0 set
-// here). Returns total chunks, or negative error (-6 = capacity).
-// Threading mirrors pfv_demux_file_sparse_pstep: per-frame workers into
-// per-frame scratch, then a single-threaded splice (which also rebases
-// the per-frame coff segments).
-int64_t pfv_demux_file_sparse_tiles(
-    const uint8_t* file, int64_t len, int64_t header_off,
-    int64_t total_blocks, int64_t max_frames, uint16_t* bh_out,
-    const int32_t* mv_bounds, uint8_t* ftype, uint8_t* qidx,
-    uint32_t* units_out, int64_t cap_chunks,
-    int32_t* coff_out, int64_t chunk, int16_t* mv_absmax_out,
-    int32_t num_threads, const int32_t* stripe_of_b,
-    const int32_t* lanebase_of_b, const int32_t* r_of_zz, int64_t gch) {
-  struct Packet {
-    const uint8_t* payload;
-    uint32_t plen;
-    uint8_t ptype;
-  };
-  std::vector<Packet> pkts;
-  int64_t off = header_off;
-  while (off + 5 <= len) {
-    uint8_t pt = file[off];
-    uint32_t plen = (uint32_t)file[off + 1] | (uint32_t)file[off + 2] << 8 |
-                    (uint32_t)file[off + 3] << 16 |
-                    (uint32_t)file[off + 4] << 24;
-    if (off + 5 + (int64_t)plen > len) return -4;
-    const uint8_t* payload = file + off + 5;
-    off += 5 + plen;
-    if (pt == 0) break;
-    if ((pt == 1 && plen > 0) || pt == 2) pkts.push_back({payload, plen, pt});
-    if ((int64_t)pkts.size() >= max_frames) break;
-  }
-  const int64_t frames = (int64_t)pkts.size();
-
-  // per-frame unit bound (layout-independent, see v1); chunk bound adds one
-  // short chunk per stripe
-  auto unit_bound = [&](int64_t f) {
-    return std::min(69 * (int64_t)pkts[f].plen + 8,
-                    129 * total_blocks * 256);
-  };
-  auto chunk_bound = [&](int64_t f) {
-    return unit_bound(f) / chunk + gch + 1;
-  };
-
-  int nthreads = num_threads > 0 ? num_threads
-                                 : (int)std::thread::hardware_concurrency();
-  nthreads = std::max(1, std::min<int>(nthreads, frames > 0 ? (int)frames : 1));
-
-  MvBounds16 bounds16;
-  if (mv_bounds) widen_mv_bounds(mv_bounds, total_blocks, &bounds16);
-  const MvBounds16* b16 = mv_bounds ? &bounds16 : nullptr;
-
-  std::vector<int16_t> mvmax(std::max<int64_t>(frames, 1), 0);
-  coff_out[0] = 0;
-
-  auto report_mvmax = [&]() {
-    if (!mv_absmax_out) return;
-    int16_t m = 0;
-    for (int64_t f = 0; f < frames; f++) m = std::max(m, mvmax[f]);
-    *mv_absmax_out = m;
-  };
-
-  if (nthreads <= 1) {
-    TileBuckets bkt;
-    int64_t cpos = 0;
-    for (int64_t f = 0; f < frames; f++) {
-      ftype[f] = pkts[f].ptype;
-      bkt.reset(gch, unit_bound(f));
-      int64_t rc = decode_payload_tiles(
-          pkts[f].payload, pkts[f].plen, pkts[f].ptype, total_blocks,
-          bh_out + f * total_blocks, b16, qidx + f * 3, stripe_of_b,
-          lanebase_of_b, r_of_zz, bkt, &mvmax[f]);
-      if (rc != 0) return rc;
-      if (!tiles_emit_frame(bkt, gch, chunk, units_out, cap_chunks,
-                            coff_out + f * gch, &cpos))
-        return -6;
-    }
-    report_mvmax();
-    return cpos;
-  }
-
-  std::vector<int64_t> fcap(frames + 1, 0);
-  for (int64_t f = 0; f < frames; f++)
-    fcap[f + 1] = fcap[f] + chunk_bound(f);
-  std::unique_ptr<uint32_t[]> unit_scratch(new uint32_t[fcap[frames] * chunk]);
-  std::vector<std::vector<int32_t>> fcoff(frames);
-  std::vector<int64_t> fchunks(frames, 0);
-  std::atomic<int64_t> next(0);
-  std::atomic<int64_t> err(0);
-  auto worker = [&]() {
-    TileBuckets bkt;
-    for (;;) {
-      int64_t f = next.fetch_add(1);
-      if (f >= frames) return;
-      ftype[f] = pkts[f].ptype;
-      bkt.reset(gch, unit_bound(f));
-      int64_t rc = decode_payload_tiles(
-          pkts[f].payload, pkts[f].plen, pkts[f].ptype, total_blocks,
-          bh_out + f * total_blocks, b16, qidx + f * 3, stripe_of_b,
-          lanebase_of_b, r_of_zz, bkt, &mvmax[f]);
-      if (rc == 0) {
-        fcoff[f].assign((size_t)gch + 1, 0);
-        int64_t cpos = 0;
-        if (!tiles_emit_frame(bkt, gch, chunk,
-                              unit_scratch.get() + fcap[f] * chunk,
-                              fcap[f + 1] - fcap[f], fcoff[f].data(), &cpos))
-          rc = -6;
-        fchunks[f] = cpos;
-      }
-      if (rc != 0) err.store(rc);
-    }
-  };
-  std::vector<std::thread> pool;
-  for (int i = 0; i < nthreads; i++) pool.emplace_back(worker);
-  for (auto& t : pool) t.join();
-  if (err.load() != 0) return err.load();
-
-  int64_t total_chunks = 0;
-  for (int64_t f = 0; f < frames; f++) total_chunks += fchunks[f];
-  report_mvmax();
-  if (total_chunks > cap_chunks) return -6;
-  int64_t cpos = 0;
-  for (int64_t f = 0; f < frames; f++) {
-    std::memcpy(units_out + cpos * chunk, unit_scratch.get() + fcap[f] * chunk,
-                (size_t)(fchunks[f] * chunk) * 4);
-    for (int64_t s = 0; s < gch; s++)
-      coff_out[f * gch + s + 1] = (int32_t)(cpos + fcoff[f][(size_t)s + 1]);
-    cpos += fchunks[f];
-  }
-  return total_chunks;
-}
-
-}  // extern "C"
 
 extern "C" {
 
@@ -2018,7 +1444,7 @@ int64_t pfv_demux_file(const uint8_t* file, int64_t len, int64_t header_off,
 // (dec.rs + common.rs + dct.rs) in plain C++, single-threaded. Used to
 // (a) anchor the "reference single-core FPS" baseline on this machine (the
 // Rust toolchain is unavailable; this mirrors the libpfvdec companion) and
-// (b) cross-check the TPU pipeline pixel-for-pixel.
+// (b) cross-check the device pipeline pixel-for-pixel.
 // ---------------------------------------------------------------------------
 
 namespace {

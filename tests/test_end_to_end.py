@@ -1,4 +1,4 @@
-"""End-to-end codec tests: TPU pipeline vs oracle vs native scalar decoder.
+"""End-to-end codec tests: device pipeline vs oracle vs native scalar decoder.
 
 The rebuild's analogue of the reference's integration tests
 (lib.rs:241-335): encode a deterministic synthetic clip, assert the produced

@@ -1,7 +1,7 @@
 """GOP-concurrent packed decode path (dataloader._gop_shape routing).
 
 Small-geometry streams with a uniform keyframe interval decode as a
-vmapped batch of per-GOP scans; output must be bit-identical to the
+batch of per-GOP scans (vmapped XLA step, or the kernel's batch axis); output must be bit-identical to the
 scalar reference decoder, including ragged last GOPs (pad frames)."""
 
 from __future__ import annotations
@@ -33,13 +33,12 @@ def test_gop_shape_detection():
     assert _gop_shape(np.array([1, 2, 1, 2, 2], np.uint8), 1000) is None
     # single GOP -> None
     assert _gop_shape(np.array([1, 2, 2], np.uint8), 1000) is None
-    # big frames -> None (unless forced)
+    # big frames -> None
     assert _gop_shape(ftype, 100000) is None
 
 
 @pytest.mark.parametrize("f,kf", [(8, 2), (7, 3)])  # even and ragged
 def test_gop_concurrent_checksums(monkeypatch, f, kf):
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "1")
     data = _encode(96, 64, f, kf)
     n, ry, ru, rv, _ = runtime.ref_decode(data)
     want = plane_checksums(ry, ru, rv)
@@ -49,19 +48,19 @@ def test_gop_concurrent_checksums(monkeypatch, f, kf):
 
 
 def test_gop_concurrent_rgb_matches_sequential(monkeypatch):
+    from pfv_tpu import dataloader
+
     data = _encode(96, 64, 6, 2)
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "1")
     a = np.asarray(decode_video_rgb(data))
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "0")
+    monkeypatch.setattr(dataloader, "_GOP_CONCURRENT_MAX_BLOCKS", 0)
     b = np.asarray(decode_video_rgb(data))
     assert a.shape == b.shape
     assert (a == b).all()
 
 
 def test_gop_concurrent_with_step_kernel(monkeypatch):
-    """GOP-vmap composed with the fused Pallas step (interpret on CPU)."""
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "1")
-    monkeypatch.setenv("PFV_STEP", "1")
+    """GOP batch composed with the GPU step kernel (interpret on CPU)."""
+    monkeypatch.setenv("PFV_STEP", "interpret")
     data = _encode(128, 96, 6, 2)
     n, ry, ru, rv, _ = runtime.ref_decode(data)
     want = plane_checksums(ry, ru, rv)

@@ -1,12 +1,11 @@
-"""Fast-path multi-chip decode over the 8-device virtual mesh.
+"""Fast-path multi-device decode over the 8-device virtual mesh.
 
-VERDICT r4 item 5: the sharded decode must run the SAME packed demux
-layout and fused Pallas kernels as the single-chip headline path — the
-units/seq kernel per shard inside shard_map (per-device programs need no
-vmap), not the dense demux + XLA scan the original parallel layer used.
-These tests force the units path (PFV_STEP=1 + PFV_GOP_CONCURRENT=0 on
-pstep geometry) and assert exact pixel equality against the native scalar
-reference decoder, per stream / per frame.
+The sharded decode must run the SAME packed demux layout and step as the
+single-device path — the GPU step kernel per shard inside shard_map, not
+a separate dense demux + XLA scan. These tests force the kernel (in the
+Pallas interpreter: PFV_STEP=interpret) with the per-frame form (GOP-
+concurrent form off) and assert exact pixel equality against the native
+scalar reference decoder, per stream / per frame.
 """
 
 from __future__ import annotations
@@ -18,8 +17,6 @@ from pfv_tpu import runtime
 from pfv_tpu.encoding import encode_video
 from pfv_tpu.utils.synth import synth_yuv_frame
 
-# pstep geometry: cw = max(128, 2*64) = 128 (multiple of 128),
-# gch = (48 + 32)/16 = 5 >= 4 => units path eligible
 W, H, FPS, Q = 128, 48, 30, 3
 
 
@@ -30,14 +27,11 @@ def _clip(f, t0=0, w=W, h=H):
     return ys, us, vs
 
 
-def _force_units(monkeypatch):
+def _force_kernel(monkeypatch, step="interpret"):
     from pfv_tpu import dataloader
 
-    monkeypatch.setenv("PFV_STEP", "1")
-    monkeypatch.setenv("PFV_SEQ", "1")
-    monkeypatch.setenv("PFV_UNITS", "1")
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "0")
-    dataloader._make_decoder.cache_clear()
+    monkeypatch.setenv("PFV_STEP", step)
+    monkeypatch.setattr(dataloader, "_GOP_CONCURRENT_MAX_BLOCKS", 0)
 
 
 def _ref_planes(data):
@@ -46,20 +40,20 @@ def _ref_planes(data):
 
 
 def test_stream_batch_packed_units(monkeypatch):
-    """8 streams, 8 devices: one units/seq kernel program per shard."""
+    """8 streams, 8 devices: one step-kernel program per shard."""
     import jax
 
     from pfv_tpu.parallel.streams import (
         decode_stream_batch_packed, make_stream_mesh, stack_streams_packed)
 
-    _force_units(monkeypatch)
+    _force_kernel(monkeypatch)
     datas = [
         encode_video(*_clip(5, t0=9 * s), FPS, Q, keyframes=3)
         for s in range(8)
     ]
     info, stacked = stack_streams_packed(datas)
-    assert info.get("units", 0) > 0, "units path not taken"
-    assert info["decode_mode"].startswith("pstep")
+    assert info["decode_mode"] == "interpret", "kernel path not taken"
+    assert info["gop_shape"] is None
 
     mesh = make_stream_mesh(8)
     (y, u, v), gmean = decode_stream_batch_packed(datas, mesh, want="yuv")
@@ -78,7 +72,7 @@ def test_stream_batch_packed_two_per_device(monkeypatch):
     from pfv_tpu.parallel.streams import (
         decode_stream_batch_packed, make_stream_mesh)
 
-    _force_units(monkeypatch)
+    _force_kernel(monkeypatch)
     datas = [
         encode_video(*_clip(4, t0=5 * s), FPS, Q, keyframes=2)
         for s in range(8)
@@ -128,11 +122,11 @@ def test_split_gop_runs_balanced():
 
 def test_gops_packed_matches_reference(monkeypatch):
     """GOP runs of one stream sharded over 4 devices, decoded through the
-    units/seq fast path per shard, stitched back in frame order."""
+    step kernel per shard, stitched back in frame order."""
     from pfv_tpu.parallel.gops import decode_video_gops_packed
     from pfv_tpu.parallel.streams import make_stream_mesh
 
-    _force_units(monkeypatch)
+    _force_kernel(monkeypatch)
     data = encode_video(*_clip(11), FPS, Q, keyframes=2)
     mesh = make_stream_mesh(4, axis="gops")
     y, u, v = decode_video_gops_packed(data, mesh=mesh, want="yuv")
@@ -146,7 +140,7 @@ def test_gops_packed_rgb(monkeypatch):
     from pfv_tpu.parallel.gops import decode_video_gops_packed
     from pfv_tpu.parallel.streams import make_stream_mesh
 
-    _force_units(monkeypatch)
+    _force_kernel(monkeypatch)
     data = encode_video(*_clip(9, t0=4), FPS, Q, keyframes=2)
     mesh = make_stream_mesh(2, axis="gops")
     rgb = decode_video_gops_packed(data, mesh=mesh, want="rgb")
@@ -159,23 +153,17 @@ def test_gops_packed_rgb(monkeypatch):
 
 
 def test_stream_batch_packed_scatter_path(monkeypatch):
-    """PFV_UNITS=0: the scatter-fed pstep layout shards the same way."""
-    from pfv_tpu import dataloader
+    """PFV_STEP=0: the XLA step shards the same way."""
     from pfv_tpu.parallel.streams import (
         decode_stream_batch_packed, make_stream_mesh, stack_streams_packed)
 
-    monkeypatch.setenv("PFV_STEP", "1")
-    monkeypatch.setenv("PFV_SEQ", "1")
-    monkeypatch.setenv("PFV_UNITS", "0")
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "0")
-    dataloader._make_decoder.cache_clear()
-
+    _force_kernel(monkeypatch, step="0")
     datas = [
         encode_video(*_clip(4, t0=3 * s), FPS, Q, keyframes=2)
         for s in range(4)
     ]
     info, _ = stack_streams_packed(datas)
-    assert info.get("units", 0) == 0
+    assert info["decode_mode"] == "mxu"
     mesh = make_stream_mesh(4)
     (y, u, v), _ = decode_stream_batch_packed(datas, mesh, want="yuv")
     y = np.asarray(y)

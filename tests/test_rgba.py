@@ -1,8 +1,10 @@
-"""Packed-RGBA output path (ops/pallas/rgb_kernel.py + dataloader API).
+"""Packed-RGBA output path (dataloader._rgba_xla + dataloader API).
 
-The RGBA fast path must be byte-identical to the XLA decode-to-RGB path
-(which is itself oracle-tested): same float constants, op order, and
-Rust-`as u8` saturation (reference lib.rs:378-391)."""
+The RGBA output must be byte-identical to the decode-to-RGB path (which is
+itself oracle-tested) and to the host conversion of the scalar reference
+decoder's planes: same float constants, op order, and Rust-`as u8`
+saturation (reference lib.rs:378-391). PFV_STEP picks the step: the GPU
+kernel in the Pallas interpreter ("interpret") or the XLA steps ("0")."""
 
 from __future__ import annotations
 
@@ -23,20 +25,16 @@ def _clip(w, h, f):
 
 
 @pytest.mark.parametrize(
-    "w,h,env",
+    "w,h,step",
     [
-        (128, 96, {"PFV_STEP": "1"}),    # pallas canvas->RGBA kernel
-        (128, 96, {"PFV_STEP": "0"}),    # XLA _rgba_xla twin
-        (136, 90, {"PFV_STEP": "0"}),    # odd geometry (XLA fallback)
-        # width > 512: the expand matrices split into output-lane chunks
-        # (k > 1) to fit scoped VMEM (r5 hardware OOM at 1080p); 640 ->
-        # k = 5 chunks of 128 lanes
-        (640, 96, {"PFV_STEP": "1"}),
+        (128, 96, "interpret"),   # GPU step kernel
+        (128, 96, "0"),           # XLA step
+        (136, 90, "0"),           # odd geometry
+        (136, 90, "interpret"),
     ],
 )
-def test_rgba_matches_rgb(w, h, env, monkeypatch):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+def test_rgba_matches_rgb(w, h, step, monkeypatch):
+    monkeypatch.setenv("PFV_STEP", step)
     data = _clip(w, h, 5)
     rgba = np.asarray(decode_video_rgba(data))
     rgb = np.asarray(decode_video_rgb(data))
@@ -47,26 +45,27 @@ def test_rgba_matches_rgb(w, h, env, monkeypatch):
 
 
 def test_rgba_gop_concurrent(monkeypatch):
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "1")
-    monkeypatch.setenv("PFV_STEP", "1")
+    """The GOP-concurrent form (GOPs as the kernel's batch axis) and the
+    per-frame form give the same RGBA."""
+    from pfv_tpu import dataloader
+
+    monkeypatch.setenv("PFV_STEP", "interpret")
     data = _clip(128, 96, 6)
+    info, _ = dataloader._demux_packed_to_device(data, 0)
+    assert info["gop_shape"] == (2, 3)
     a = np.asarray(decode_video_rgba(data))
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "0")
+    monkeypatch.setattr(dataloader, "_GOP_CONCURRENT_MAX_BLOCKS", 0)
+    info, _ = dataloader._demux_packed_to_device(data, 0)
+    assert info["gop_shape"] is None
     b = np.asarray(decode_video_rgba(data))
     assert (a == b).all()
 
 
-def test_gated_ladders_exact(monkeypatch):
-    """Mask-gated MC ladders decode bit-identically to the plain kernel
-    (and the scalar reference)."""
-    from pfv_tpu import runtime
-    from pfv_tpu.dataloader import _demux_packed_to_device, decode_video_yuv
+def test_rgba_matches_reference(monkeypatch):
+    """Kernel RGBA equals the host conversion of the scalar reference
+    decoder's planes (the check chip_smoke.py makes on the card)."""
+    from pfv_tpu.utils.timing import equal, reference_products
 
-    monkeypatch.setenv("PFV_STEP", "1")
-    monkeypatch.setenv("PFV_LADDER", "gated")
-    data = _clip(256, 128, 8)  # cw % 128 == 0: pstep-eligible
-    info, _ = _demux_packed_to_device(data, 0)
-    assert info["decode_mode"] == "pstep_gated"
-    y, u, v = (np.asarray(p) for p in decode_video_yuv(data))
-    n, ry, ru, rv, _ = runtime.ref_decode(data)
-    assert (y == ry).all() and (u == ru).all() and (v == rv).all()
+    monkeypatch.setenv("PFV_STEP", "interpret")
+    data = _clip(256, 128, 8)
+    assert equal(decode_video_rgba(data), reference_products(data)["rgba"])

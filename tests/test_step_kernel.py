@@ -1,4 +1,4 @@
-"""Fused step-kernel (ops/pallas/step_kernel.py) bit-exactness tests.
+"""GPU step-kernel (ops/pallas/step_kernel.py) bit-exactness tests.
 
 The kernel runs in interpreter mode on the CPU test backend; every test
 asserts exact pixel equality against the native scalar reference decoder
@@ -12,19 +12,9 @@ import io
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
 from pfv_tpu import runtime
-from pfv_tpu.dataloader import _qidx_uniform, get_decoder
 from pfv_tpu.encoding import encode_video
 from pfv_tpu.utils.synth import synth_yuv_frame
-
-# this module pins the per-frame scan form of the step kernel (the
-# fallback and the GOP-vmap building block); the whole-clip seq form is
-# covered by test_seq_kernel.py
-import os
-
-os.environ["PFV_SEQ"] = "0"
 
 
 def _clip(w, h, f, t0=0):
@@ -34,32 +24,20 @@ def _clip(w, h, f, t0=0):
     return ys, us, vs
 
 
-def _decode_pstep(data, mode="pstep"):
-    """Decode through the full pstep chain: native v2 demux (stripe-layout
-    unit stream) -> packed meta -> device scatter -> fused step kernel
-    (interpret mode on the CPU test backend). Builds the demux tables
-    directly so non-128-lane geometries are covered too (the production
-    gate restricts those to the XLA paths on real hardware)."""
-    from pfv_tpu.dataloader import _pstep_tables
+@pytest.fixture(autouse=True)
+def _kernel(monkeypatch):
+    """Every decode here takes the step kernel (Pallas interpreter), per
+    frame (GOP-concurrent form off)."""
+    from pfv_tpu import dataloader
 
-    hdr, _ = runtime.parse_header(data)
-    tables = _pstep_tables(hdr["width"], hdr["height"])
-    info, deltas, vals, bh, ftype, qidx = runtime.demux_file_sparse_packed(
-        data, pstep_tables=tables
-    )
-    dec = get_decoder(info["width"], info["height"], info["qtables"], mode)
-    n = bh.size + ftype.size + qidx.size
-    meta = np.empty(n, dtype=np.uint16)
-    meta[: bh.size] = bh.ravel()
-    meta[bh.size : bh.size + ftype.size] = ftype
-    meta[bh.size + ftype.size :] = qidx.ravel()
-    return dec.decode_yuv_packed(
-        jnp.asarray(deltas), jnp.asarray(vals), jnp.asarray(meta)
-    )
+    monkeypatch.setenv("PFV_STEP", "interpret")
+    monkeypatch.setattr(dataloader, "_GOP_CONCURRENT_MAX_BLOCKS", 0)
 
 
-def _assert_matches_reference(data, mode="pstep"):
-    y, u, v = (np.asarray(p) for p in _decode_pstep(data, mode))
+def _assert_matches_reference(data):
+    from pfv_tpu.dataloader import decode_video_yuv
+
+    y, u, v = (np.asarray(p) for p in decode_video_yuv(data))
     n, ry, ru, rv, _ = runtime.ref_decode(data)
     assert y.shape == ry.shape
     assert (y == ry).all(), "Y mismatch"
@@ -96,15 +74,6 @@ def test_step_kernel_deep_gop():
     _assert_matches_reference(data)
 
 
-@pytest.mark.parametrize("mode", ["pstep_gated", "pstep_barrel"])
-def test_step_kernel_mc_ladders(mode):
-    """The gated and barrel MC ladder variants of the scan-form step
-    kernel are bit-exact twins of the plain 33-way select ladders."""
-    ys, us, vs = _clip(144, 128, 6, t0=4)
-    data = encode_video(ys, us, vs, 30, 4, keyframes=6)
-    _assert_matches_reference(data, mode)
-
-
 def test_step_kernel_drop_frames():
     """Drop frames decode as repeat-previous; the step must not disturb
     the carried canvas (reference dec.rs:188-201, quirk Q8)."""
@@ -121,17 +90,3 @@ def test_step_kernel_drop_frames():
         (enc.encode_iframe if t == 0 else enc.encode_pframe)(f)
     enc.finish()
     _assert_matches_reference(buf.getvalue())
-
-
-def test_qidx_uniform_gate():
-    ftype = np.array([1, 2, 2, 1, 2], dtype=np.uint8)
-    qidx = np.array(
-        [[0, 1, 1], [2, 3, 3], [2, 3, 3], [0, 1, 1], [2, 3, 3]], np.uint8
-    )
-    assert _qidx_uniform(ftype, qidx)
-    bad = qidx.copy()
-    bad[2] = (2, 3, 2)  # U != V
-    assert not _qidx_uniform(ftype, bad)
-    bad2 = qidx.copy()
-    bad2[4] = (0, 1, 1)  # P frames disagree
-    assert not _qidx_uniform(ftype, bad2)

@@ -1,14 +1,12 @@
-"""Units-fed seq kernel (make_step_seq_units) bit-exactness tests.
+"""GPU step kernel (ops/pallas/step_kernel.py) bit-exactness tests.
 
-The units path replaces the XLA scatter densify + dense coefficient
-pipeline with IN-KERNEL densify: the native tile demux
-(runtime.demux_file_sparse_tiles) buckets units per (frame, stripe) tile
-in fixed-size chunks, and the kernel accumulates each stripe's (64, 2*scp)
-coefficient tile from compare-built one-hot factors multiplied on the MXU
-(exact: integer values << 2^24 in f32 accumulation). These tests force the
-path (PFV_GOP_CONCURRENT=0 + pstep geometry => _units_wanted) and assert
-exact pixel equality against the native scalar reference decoder, in
-interpret mode on the CPU test backend.
+The kernel runs in the Pallas interpreter on the CPU test backend
+(PFV_STEP=interpret): every decode test goes through the dataloader entry
+points on the path a GPU takes (sparse demux -> device densify -> one
+kernel launch per frame) and asserts exact pixel equality against the
+native scalar reference decoder. The random-input tests compare one
+kernel step with the XLA step on hand-built frames: intra, skipped and
+coded inter blocks, |mv| = 16 at plane edges and the Y/U/V boundaries.
 """
 
 from __future__ import annotations
@@ -28,114 +26,114 @@ def _clip(w, h, f, t0=0):
     return ys, us, vs
 
 
-def _decode_units(data, monkeypatch, ladder="auto", sb=None):
+def _decode_kernel(data, monkeypatch):
     from pfv_tpu import dataloader
 
-    monkeypatch.setenv("PFV_STEP", "1")
-    monkeypatch.setenv("PFV_SEQ", "1")
-    monkeypatch.setenv("PFV_UNITS", "1")
-    monkeypatch.setenv("PFV_GOP_CONCURRENT", "0")
-    if ladder != "auto":
-        monkeypatch.setenv("PFV_LADDER", ladder)
-    if sb is not None:
-        monkeypatch.setenv("PFV_SB", str(sb))
-    dataloader._make_decoder.cache_clear()
-    try:
-        info, args = dataloader._demux_packed_to_device(data, 0)
-        assert info.get("units", 0) > 0, "units path not taken"
-        assert len(args) == 3  # (units, coff, meta)
-        return tuple(
-            np.asarray(p) for p in dataloader.decode_video_yuv(data)
-        )
-    finally:
-        dataloader._make_decoder.cache_clear()
+    monkeypatch.setenv("PFV_STEP", "interpret")
+    info, _ = dataloader._demux_packed_to_device(data, 0)
+    assert info["decode_mode"] == "interpret", "kernel path not taken"
+    return tuple(np.asarray(p) for p in dataloader.decode_video_yuv(data))
 
 
 def _assert_ref(data, got):
     n, ry, ru, rv, _ = runtime.ref_decode(data)
     y, u, v = got
+    assert y.shape == ry.shape
     assert (y == ry).all() and (u == ru).all() and (v == rv).all()
 
 
-@pytest.mark.parametrize("ladder", ["plain", "barrel"])
-def test_units_matches_reference(ladder, monkeypatch):
-    # keyframes=4 puts an I-frame mid-stream (dense unit tiles) between
-    # P-frames (sparse tiles, many empty); 256 wide => pstep-eligible
-    ys, us, vs = _clip(256, 128, 7)
+@pytest.mark.parametrize(
+    "w,h",
+    [
+        (256, 128),   # two kernel tiles per luma stripe
+        (136, 90),    # width not a multiple of 16 or 128: dead filler
+        (112, 112),   # chroma region (U | V) wider than the luma region
+    ],
+)
+def test_units_matches_reference(w, h, monkeypatch):
+    # keyframes=4 puts an I-frame mid-stream between P-frames
+    ys, us, vs = _clip(w, h, 7)
     data = encode_video(ys, us, vs, 30, quality=2, keyframes=4)
-    _assert_ref(data, _decode_units(data, monkeypatch, ladder))
+    _assert_ref(data, _decode_kernel(data, monkeypatch))
 
 
-def test_units_long_gop_gated(monkeypatch):
-    # single keyframe: every P band read chains through freshly written
-    # stripes; gated ladders exercise the scratch-VMEM MC variant next
-    # to the in-kernel densify's own scratch
+def test_units_long_gop(monkeypatch):
+    # single keyframe: every P-frame reads the canvas the kernel wrote
     ys, us, vs = _clip(128, 96, 6, t0=3)
     data = encode_video(ys, us, vs, 30, quality=4, keyframes=100)
-    _assert_ref(data, _decode_units(data, monkeypatch, "gated"))
+    _assert_ref(data, _decode_kernel(data, monkeypatch))
 
 
-def test_units_sb2(monkeypatch):
-    # sb=2: two stripes (= two unit tiles) share one grid step; each
-    # densifies into the shared acc scratch sequentially
+def test_units_gop_batch(monkeypatch):
+    # uniform keyframe interval on a small frame: the GOP-concurrent form
+    # runs the GOPs as the kernel's batch axis (B > 1), ragged last GOP
     from pfv_tpu import dataloader
 
-    monkeypatch.setenv("PFV_SB", "2")
-    assert dataloader._pick_sb(12, 8) == 2
-    ys, us, vs = _clip(128, 128, 5, t0=2)
-    data = encode_video(ys, us, vs, 30, quality=2, keyframes=100)
-    _assert_ref(data, _decode_units(data, monkeypatch, "plain", sb=2))
+    ys, us, vs = _clip(96, 64, 7, t0=2)
+    data = encode_video(ys, us, vs, 30, quality=2, keyframes=3)
+    monkeypatch.setenv("PFV_STEP", "interpret")
+    info, _ = dataloader._demux_packed_to_device(data, 0)
+    assert info["gop_shape"] == (3, 3)
+    _assert_ref(data, _decode_kernel(data, monkeypatch))
 
 
-def test_units_multichunk_tiles(monkeypatch):
-    # quality=0 keeps many coefficients => tiles span several chunks,
-    # exercising the double-buffered chunk DMA loop (nch > 1)
-    from pfv_tpu import dataloader
-
-    ys, us, vs = _clip(256, 128, 4, t0=7)
+def test_units_dense_coefficients(monkeypatch):
+    # quality=0 keeps many large coefficients (|v| > 127 spans several
+    # units at one position, summed by the densify scatter)
+    ys, us, vs = _clip(128, 64, 4, t0=7)
     data = encode_video(ys, us, vs, 30, quality=0, keyframes=4)
-    tt = dataloader._tile_tables(256, 128)
-    _, _, coff, _, _, _ = runtime.demux_file_sparse_tiles(
-        data, tt, chunk=dataloader._UNITS_CHUNK)
-    assert int(np.diff(coff).max()) > 1, "clip too sparse for the test"
-    _assert_ref(data, _decode_units(data, monkeypatch))
+    _assert_ref(data, _decode_kernel(data, monkeypatch))
 
 
-def test_tile_demux_matches_pstep_chain(monkeypatch):
-    # the tile demux's bucketed units scatter-add to exactly the dense
-    # tensor the pstep delta chain produces (order-free equivalence)
-    from pfv_tpu import dataloader as dl
+def _random_frame(rng, w, h, intra):
+    """Random stream-layout inputs of one frame with every motion vector
+    inside its own plane, half of them at the +-16 extremes."""
+    from pfv_tpu.frame import pad16
 
-    W, H = 256, 128
-    ys, us, vs = _clip(W, H, 5)
-    data = encode_video(ys, us, vs, 30, quality=1, keyframes=3)
+    ly = (pad16(h), pad16(w))
+    lc = (pad16(h // 2), pad16(w // 2))
+    planes = [ly, lc, lc]
+    mvs = []
+    for ph, pw in planes:
+        by, bx = np.divmod(np.arange((ph // 16) * (pw // 16)), pw // 16)
+        by, bx = by * 16, bx * 16
+        lo_y, hi_y = np.maximum(-16, -by), np.minimum(16, ph - 16 - by)
+        lo_x, hi_x = np.maximum(-16, -bx), np.minimum(16, pw - 16 - bx)
+        edge = rng.random(by.shape) < 0.5
+        my = np.where(edge, np.where(rng.random(by.shape) < 0.5, lo_y, hi_y),
+                      rng.integers(lo_y, hi_y + 1))
+        mx = np.where(edge, np.where(rng.random(bx.shape) < 0.5, lo_x, hi_x),
+                      rng.integers(lo_x, hi_x + 1))
+        mvs.append((mx, my))
+    mvx = np.concatenate([m[0] for m in mvs]).astype(np.int8)
+    mvy = np.concatenate([m[1] for m in mvs]).astype(np.int8)
+    nb = mvx.shape[0]
+    coeffs = rng.integers(-300, 300, size=(nb, 256))
+    coeffs[rng.random(coeffs.shape) < 0.85] = 0
+    hc = (rng.random(nb) < 0.5).astype(np.uint8)
+    ftype = 1 if intra else 2
+    qidx = np.array([0, 1, 1] if intra else [2, 3, 3], np.int32)
+    return coeffs.astype(np.int16), mvx, mvy, hc, ftype, qidx
 
-    off, r_of_zz, row_span = dl._pstep_tables(W, H)
-    info, deltas, vals, bh, ftype, qidx = runtime.demux_file_sparse_packed(
-        data, 0, pstep_tables=(off, r_of_zz, row_span))
-    f = ftype.shape[0]
-    pos = np.cumsum(deltas.astype(np.int64))
-    keep = (vals != 0) & (pos < f * 64 * row_span)
-    dense = np.zeros(f * 64 * row_span, np.int32)
-    np.add.at(dense, pos[keep], vals[keep].astype(np.int32))
 
-    tt = dl._tile_tables(W, H)
-    gch = tt[3]
-    rs = row_span // gch
-    info3, units, coff, bh3, ft3, qi3 = runtime.demux_file_sparse_tiles(
-        data, tt, chunk=64)
-    assert np.array_equal(bh, bh3)
-    assert np.array_equal(ftype, ft3) and np.array_equal(qidx, qi3)
-    got = np.zeros((f, gch, 64, rs), np.int32)
-    for t in range(f * gch):
-        a, b = int(coff[t]), int(coff[t + 1])
-        if a == b:
-            continue
-        ww = units[a:b].reshape(-1).astype(np.int64)
-        ii = ww >> 16
-        # low 16 bits: the i8 addend sign-extended to u16
-        vv = ((ww & 0xFFFF) ^ 0x8000) - 0x8000
-        fi, s = divmod(t, gch)
-        np.add.at(got[fi, s], (ii >> 10, ii & 1023), vv)
-    want = dense.reshape(f, 64, gch, rs).transpose(0, 2, 1, 3)
-    assert np.array_equal(got, want)
+@pytest.mark.parametrize("w,h,seed", [(64, 48, 0), (136, 90, 1),
+                                      (48, 80, 2)])
+def test_step_kernel_matches_xla_step(w, h, seed):
+    """An I-frame, then two P-frames of random blocks: the kernel's
+    canvases equal the XLA gather step's planes exactly."""
+    import jax.numpy as jnp
+
+    from pfv_tpu import dataloader
+    from pfv_tpu.ops.quant import derive_q_tables
+
+    rng = np.random.default_rng(seed)
+    frames = [_random_frame(rng, w, h, intra=(i == 0)) for i in range(3)]
+    args = tuple(np.stack([fr[k] for fr in frames]) for k in range(6))
+    t = derive_q_tables(5)
+    qt = np.stack([t["intra_l"], t["intra_c"], t["inter_l"], t["inter_c"]])
+    want = dataloader.get_decoder(w, h, qt, "gather").decode_yuv(
+        *map(jnp.asarray, args))
+    got = dataloader.get_decoder(w, h, qt, "interpret").decode_yuv(
+        *map(jnp.asarray, args))
+    for g, x in zip(got, want):
+        assert (np.asarray(g) == np.asarray(x)).all()
